@@ -1,10 +1,10 @@
-"""ekf_slam_tpu — a TPU-native EKF-SLAM engine.
+"""ekf_slam_tpu — an accelerator-native EKF-SLAM engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-SamShue/EKF_SLAM (2-D feature-based EKF-SLAM: RANSAC wall/landmark
-extraction, ML data association, dense joint-covariance EKF), built for
-fixed-shape jit compilation, batched association, and covariance tiles
-sharded over TPU meshes.
+A from-scratch JAX/XLA re-design of the capabilities of SamShue/EKF_SLAM
+(2-D feature-based EKF-SLAM: RANSAC wall/landmark extraction, ML data
+association, dense joint-covariance EKF), built for fixed-shape jit
+compilation, batched association, and covariance tiles sharded over a
+device mesh.
 
 Primary entry points::
 

@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native EKF-SLAM engine.
+"""Typed configuration for the accelerator-native EKF-SLAM engine.
 
 The reference (SamShue/EKF_SLAM) hard-codes all tuning as class properties and
 local variables (EKF_SLAM.m:12-16, EKF_SLAM_UC.m:12-16, RANSAC.m:67-90,
@@ -119,7 +119,7 @@ class EKFParams:
     #: measurement-phase scheduling: 'sequential' replays the reference's
     #: per-observation update chain (EKF_SLAM_UC.m:109-150, bit-parity
     #: path); 'batched' applies one joint rank-2M update per tick
-    #: (models/batched.py, the TPU fast path — one pass over P per tick);
+    #: (models/batched.py, the fast path — one pass over P per tick);
     #: 'srekf' propagates the Cholesky factor of P instead of P itself
     #: (models/srekf.py — PSD by construction at any precision; QR
     #: re-triangularization per tick, O(D³) — small-capacity only);
@@ -149,35 +149,20 @@ class EKFParams:
     #:   'rows'  — exploit P's symmetry: P·Hᵀ = (H·P)ᵀ needs only the 2M+3
     #:             OBSERVED rows of P (pose rows + one contiguous row pair
     #:             per gated landmark), gathered as whole rows.  Halves the
-    #:             chain's MXU flops and drops one full pass over P — the
-    #:             10k-landmark regime is compute-bound on exactly that
-    #:             GEMM.  Requires symmetric P, which the batched update
+    #:             chain's matmul flops and drops one full pass over P.
+    #:             Requires symmetric P, which the batched update
     #:             preserves exactly in algebra (posterior = P − Z·S⁻¹·Zᵀ)
     #:             and to fp round-off in practice; the sequential
     #:             ref-compat path keeps 'dense' semantics.
     pht_mode: str = "dense"
 
-    #: how rows-mode paths gather the observed row pairs of P (or of the
-    #: factor S in srekf_fast): 'take' uses XLA's gather lowering — the
-    #: measured default (BASELINE.md round-3 wire-or-retire); 'pallas'
-    #: uses the scalar-prefetch DMA-window kernel
-    #: (ops/pallas/kernels.pair_gather_pallas), which requires a state
-    #: padded via ``init_state(pad_to_multiple_of=128)`` — unpadded
-    #: shapes warn and fall back to 'take'.
-    rows_gather: str = "take"
-
     #: how the batched update applies the rank-2M covariance correction
     #: P ← P − PHᵀ·S⁻¹·(PHᵀ)ᵀ:
-    #:   'gemm' — XLA dense GEMM P − Kg·HP (full D²·2M flops);
-    #:   'syrk' — exploit the correction's symmetry: with S = L·Lᵀ the
-    #:            correction is W·Wᵀ (W = PHᵀ·L⁻ᵀ), and the Pallas SYRK
-    #:            kernel (ops/pallas/kernels.syrk_downdate) computes only
-    #:            the lower-triangle tiles and mirrors them — HALF the
-    #:            flops of the chain's dominant GEMM at 10k landmarks,
-    #:            and P leaves the update bit-symmetric (which
-    #:            pht_mode='rows' relies on).  Requires a state padded so
-    #:            D is a multiple of 128 (init_state(pad_to_multiple_of=
-    #:            128)); unpadded shapes warn and fall back to 'gemm'.
+    #:   'gemm' — the dense GEMM P − Kg·HP (Kg = PHᵀ·S⁻¹);
+    #:   'syrk' — the symmetric form: with S = L·Lᵀ the correction is
+    #:            W·Wᵀ (W = PHᵀ·L⁻ᵀ, models/batched.syrk_downdate), a
+    #:            product of one operand with its own transpose, and the
+    #:            mean update reuses W (no S⁻¹ or Kg is formed).  Any D.
     #:            Incompatible with joseph (its correction is not W·Wᵀ).
     correction: str = "gemm"
 
@@ -195,15 +180,6 @@ class EKFParams:
     #:  - append Jacobians jz built from (dD, dTheta) instead of the
     #:    inverse-measurement bearing (EKF_SLAM.m:87-88)
     ref_compat: bool = True
-
-    #: evaluate the batched-mode hot ops with the hand-written Pallas
-    #: kernels (ops/pallas/) instead of the XLA paths: the fused [M,K]
-    #: association gate (gating.py) and the rank-2M covariance correction
-    #: (kernels.cov_update, non-Joseph only).  Both are bit-tested against
-    #: the XLA paths; on CPU they run in interpret mode.  Measured on chip
-    #: the XLA paths are already at the roof (BASELINE.md), so this is an
-    #: experiment flag, not a default.
-    use_pallas: bool = False
 
     #: express predict's sparse F·P·Fᵀ row/col updates and append's
     #: covariance block writes as elementwise where-selects over the full
@@ -224,9 +200,9 @@ class EKFParams:
 
     dtype: Any = jnp.float32
     #: storage dtype for the covariance P ONLY (None → same as ``dtype``).
-    #: ``jnp.bfloat16`` halves the HBM traffic of the P-streaming passes —
-    #: the bandwidth wall at 10k+ landmarks — while all contractions
-    #: accumulate in f32 on the MXU and the mean/solves stay in ``dtype``
+    #: ``jnp.bfloat16`` halves the memory traffic of the P-streaming passes
+    #: while all large contractions accumulate in f32 and the mean/solves
+    #: stay in ``dtype``
     #: (mixed precision, models/batched.py).  Supported by the batched
     #: update path + gate; the sequential bit-parity path and srekf keep
     #: full-precision storage.
@@ -245,7 +221,6 @@ class EKFParams:
         if self.update_mode in ("srekf", "srekf_fast"):
             ignored = [
                 ("cov_dtype", self.cov_dtype is not None),
-                ("use_pallas", self.use_pallas),
                 ("joseph", self.joseph),
                 ("symmetrize", self.symmetrize),
                 ("masked_writes", self.masked_writes),
@@ -281,14 +256,6 @@ class EKFParams:
             raise ValueError(
                 "ml_losers='drop' only applies to association='ml_unique' "
                 "(no other mode produces batch-level losers)")
-        if self.rows_gather not in ("take", "pallas"):
-            raise ValueError(f"unknown rows_gather {self.rows_gather!r}")
-        if (self.rows_gather == "pallas"
-                and self.pht_mode != "rows"
-                and self.update_mode != "srekf_fast"):
-            raise ValueError(
-                "rows_gather='pallas' only applies to row-gathering paths "
-                "(pht_mode='rows' or update_mode='srekf_fast')")
         if self.correction not in ("gemm", "syrk"):
             raise ValueError(f"unknown correction {self.correction!r}")
         if self.correction == "syrk" and self.joseph:

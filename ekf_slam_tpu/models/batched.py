@@ -3,7 +3,8 @@
 The reference applies observations strictly sequentially — each Kalman
 update rewrites the full covariance before the next begins
 (EKF_SLAM_UC.m:109-150), so M observations cost M full passes over the
-(3+2K)² covariance.  On TPU that is pure HBM-bandwidth waste: the joint
+(3+2K)² covariance.  On an accelerator that is pure memory-bandwidth
+waste: the joint
 batched-innovation update stacks the M measurement Jacobians into one
 [2M × D] observation model and applies a single rank-2M correction
 
@@ -92,6 +93,25 @@ def noise_block(Rs: jnp.ndarray, valid: jnp.ndarray, dt) -> jnp.ndarray:
     return Rblk
 
 
+def gather_pairs(P: jnp.ndarray, starts: jnp.ndarray) -> jnp.ndarray:
+    """Rows ``starts[i]`` and ``starts[i] + 1`` of ``P`` for every i, stacked
+    as [2M, D]: the observed row pairs read by the rows-mode update (and by
+    srekf_fast's factor-space analog).  Whole contiguous rows, so XLA emits
+    a plain row gather."""
+    rp = (starts[:, None] + jnp.arange(2)[None, :]).reshape(-1)
+    return jnp.take(P, rp, axis=0)
+
+
+def syrk_downdate(P: jnp.ndarray, W: jnp.ndarray) -> jnp.ndarray:
+    """The symmetric rank-R downdate P − W·Wᵀ (``correction='syrk'``).
+
+    The product accumulates in f32 when the storage dtype is narrower
+    (bf16 P), and the difference is rounded to the storage dtype once."""
+    acc = jnp.float32 if P.dtype in (jnp.bfloat16, jnp.float16) else P.dtype
+    C = jnp.matmul(W, W.T, preferred_element_type=acc)
+    return (P.astype(acc) - C).astype(P.dtype)
+
+
 def hp_from_rows(P: jnp.ndarray, x: jnp.ndarray, zs: jnp.ndarray,
                  slots: jnp.ndarray, valid: jnp.ndarray, params: EKFParams,
                  dt) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
@@ -119,9 +139,7 @@ def hp_from_rows(P: jnp.ndarray, x: jnp.ndarray, zs: jnp.ndarray,
     nu = (nu * vmask[:, None]).reshape(2 * M)
 
     rows = 3 + 2 * slots                                       # i32[M]
-    from ..ops.pallas.kernels import gather_pairs
-    Plm = gather_pairs(P, rows, params.rows_gather).reshape(
-        M, 2, D).astype(dt)
+    Plm = gather_pairs(P, rows).reshape(M, 2, D).astype(dt)
     Ppose = P[:3].astype(dt)                                   # [3,D]
     HP = (jnp.einsum("mij,jd->mid", A, Ppose)
           + jnp.einsum("mij,mjd->mid", B, Plm)).reshape(2 * M, D)
@@ -145,21 +163,20 @@ def update_batch(state: FilterState, zs: jnp.ndarray, slots: jnp.ndarray,
     zs: f[M,2+] measured (range, bearing, ...); Rs: f[M,2,2]; valid: bool[M].
 
     Gather-free formulation: the sparse per-observation Jacobians are
-    scattered into ONE dense Hᵀ [D, 2M] (1 MB at 10k landmarks), so
-    P·Hᵀ and H·(P·Hᵀ) are plain MXU matmuls and P is streamed exactly
-    twice (once for P·Hᵀ, once for the rank-2M correction).  TPU gathers
-    of strided P columns were the previous bottleneck.
+    scattered into ONE dense Hᵀ [D, 2M], so P·Hᵀ and H·(P·Hᵀ) are plain
+    matmuls and P is streamed exactly twice (once for P·Hᵀ, once for the
+    rank-2M correction) — no gather of strided P columns.
 
     ``params.pht_mode='rows'`` replaces the P·Hᵀ GEMM with a row gather
-    using P's symmetry (see hp_from_rows) — half the MXU flops and one
+    using P's symmetry (see hp_from_rows) — half the matmul flops and one
     fewer full pass over P; the correction GEMM (the irreducible dense
     rank-2M write) is unchanged.
     """
     x, P = state.x, state.P
     # Mixed precision (params.cov_dtype=bf16): P is stored bf16 — halving
-    # the HBM bytes of the P-streaming passes — and the two O(D²·M) GEMMs
-    # run with bf16 operands + f32 accumulation (preferred_element_type),
-    # the MXU's native fast path.  bf16 GEMM inputs cost nothing beyond
+    # the memory bytes of the P-streaming passes — and the two O(D²·M)
+    # GEMMs run with bf16 operands + f32 accumulation
+    # (preferred_element_type).  bf16 GEMM inputs cost nothing beyond
     # what bf16 *storage* already quantized.  Everything small (S, the
     # Cholesky solve, the mean, Kg·S) stays f32.
     ct = x.dtype
@@ -180,32 +197,25 @@ def update_batch(state: FilterState, zs: jnp.ndarray, slots: jnp.ndarray,
         S = HP @ Ht
     else:
         Ht, nu = innovation_operator(x, zs, slots, valid, params, ct)
-        PHt = mm(P, Ht)                                        # [D,2M] MXU
-        S = Ht.T @ PHt                                         # [2M,2M] MXU
+        PHt = mm(P, Ht)                                        # [D,2M]
+        S = Ht.T @ PHt                                         # [2M,2M]
     S = S + noise_block(Rs, valid, ct)
 
     # S is symmetric PSD (H·P·Hᵀ + R with identity blocks in masked slots).
-    # Kg = PHt·S⁻¹ via an EXPLICIT Cholesky inverse + GEMM: a triangular
-    # solve against the D-wide RHS runs far below MXU peak on TPU (TRSM is
-    # the measured bottleneck beyond M≈512 — 2·(2M)²·D flops at ~1/6 the
-    # GEMM rate), whereas inverting S turns the D-wide work into a
-    # full-speed matmul.  The inverse itself uses ONE triangular solve
-    # (L⁻¹ against eye) + a GEMM (S⁻¹ = L⁻ᵀL⁻¹) — measured ~15% faster
-    # per batch than cho_solve's two trsms at M=512, K=1k.  S is
-    # R-regularized, so the explicit inverse is numerically safe here.
+    # Kg = PHt·S⁻¹ via an EXPLICIT Cholesky inverse + GEMM, so the D-wide
+    # work is one matmul instead of a triangular solve against a D-wide
+    # right-hand side.  The inverse itself is ONE triangular solve (L⁻¹
+    # against eye) + a GEMM (S⁻¹ = L⁻ᵀL⁻¹).  S is R-regularized, so the
+    # explicit inverse is numerically safe here.
     L = jnp.linalg.cholesky(S)
     Linv = lax.linalg.triangular_solve(
         L, jnp.eye(2 * zs.shape[0], dtype=ct), left_side=True, lower=True)
 
     if params.correction == "syrk":
         # Symmetric-downdate form: Kg·(H·P) = PHᵀ·S⁻¹·(PHᵀ)ᵀ = W·Wᵀ with
-        # W = PHᵀ·L⁻ᵀ, so the correction runs as a Pallas SYRK that
-        # computes only lower-triangle tiles and mirrors them — half the
-        # MXU flops of the dense Kg·HP GEMM, bit-symmetric output (see
-        # ops/pallas/kernels.syrk_downdate).  The mean uses the same
-        # factor: Kg·nu = W·(L⁻¹·nu) — no S⁻¹ or Kg is ever formed.
-        from ..ops.pallas.kernels import syrk_downdate
-        W = PHt @ Linv.T                                       # [D,2M] MXU
+        # W = PHᵀ·L⁻ᵀ (syrk_downdate).  The mean uses the same factor:
+        # Kg·nu = W·(L⁻¹·nu) — no S⁻¹ or Kg is ever formed.
+        W = PHt @ Linv.T                                       # [D,2M]
         x = x + W @ (Linv @ nu)
         Wk = W.astype(jnp.bfloat16) if fast16 else W
         P = syrk_downdate(P, Wk)
@@ -213,18 +223,13 @@ def update_batch(state: FilterState, zs: jnp.ndarray, slots: jnp.ndarray,
             P = 0.5 * (P + P.T)
         return state._replace(x=x, P=P)
 
-    Sinv = Linv.T @ Linv                                       # [2M,2M] MXU
-    Kg = PHt @ Sinv                                            # [D,2M] MXU
+    Sinv = Linv.T @ Linv                                       # [2M,2M]
+    Kg = PHt @ Sinv                                            # [D,2M]
 
     x = x + Kg @ nu
     if params.joseph:
         KB = mm(Kg, PHt.T)
         P = (P - KB - KB.T + mm(Kg @ S, Kg.T)).astype(P.dtype)
-    elif params.use_pallas and not fast16:
-        # fused rank-2M correction: P tiles aliased in-place, one
-        # read + one write of P (ops/pallas/kernels.cov_update)
-        from ..ops.pallas.kernels import cov_update
-        P = cov_update(P, Kg, PHt.T, use_pallas=True)
     else:
         P = (P - mm(Kg, PHt.T)).astype(P.dtype)
     if params.symmetrize:
@@ -286,12 +291,10 @@ def measure_batched(state: FilterState, obs: ObsBatch, u: jnp.ndarray,
             # batch instead of becoming duplicate appends (EKFParams
             # .ml_losers; the default 'append' keeps is_new semantics)
             is_new, slots, losers = gate_batch(
-                state, zs, Rs, params, use_pallas=params.use_pallas,
-                return_losers=True)
+                state, zs, Rs, params, return_losers=True)
             obs_valid = obs_valid & ~losers
         else:
-            is_new, slots = gate_batch(state, zs, Rs, params,
-                                       use_pallas=params.use_pallas)
+            is_new, slots = gate_batch(state, zs, Rs, params)
     first = state.n_active == 0
     is_new = jnp.logical_or(is_new, first)
 

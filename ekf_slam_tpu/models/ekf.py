@@ -1,7 +1,7 @@
 """EKF-SLAM filter core: predict / append / update as pure jittable functions.
 
 Covers the math of the reference's filter classes (EKF_SLAM.m, EKF_SLAM_UC.m,
-append.m) re-designed for TPU:
+append.m) re-designed for an accelerator:
 
 * **predict** — the reference forms dense F and Q and does two full (3+2N)^2
   matmuls per tick (EKF_SLAM.m:40-51).  F differs from I in exactly two
@@ -218,7 +218,7 @@ def innovation(x: jnp.ndarray, slot, params: EKFParams
     th = x[2]
     lm = lax.dynamic_slice(x, (jnp.asarray(3 + 2 * slot, jnp.int32),), (2,))
     delta = lm - x[:2]
-    q = delta @ delta
+    q = jnp.sum(delta * delta)       # elementwise: no TF32 dot on a GPU
     # q = 0 only for padded/empty slots (or a landmark exactly at the robot,
     # degenerate in the reference too) — guard so masked lanes stay finite
     # (NaN * 0 would poison batched updates).

@@ -9,7 +9,7 @@ PSD by construction at any precision, and the effective condition number is
 κ(L) = √κ(P) — the classical square-root filter (Kaminski/Bierman), which
 the reference has no analog of.
 
-TPU design notes:
+Design notes:
 
 * The factor lives in the ordinary ``FilterState`` pytree with ``P``
   holding L (lower triangular; inactive slot rows are zero).  Slots are
@@ -58,9 +58,7 @@ def factor_from_state(state: FilterState) -> FilterState:
     the padded P is block-diagonal [P_active, 0]; augmenting the inactive
     diagonal with 1 makes Cholesky well-defined without touching the active
     factor, then the inactive rows are zeroed back out.  The factorization
-    is the blocked GEMM-dominated kernel (ops/blocked_chol.py) — at 10k+
-    landmarks XLA's own Cholesky panel recursion runs ~10× below matmul
-    rate (248 ms measured at D≈20k, BASELINE.md)."""
+    is the blocked GEMM-dominated kernel (ops/blocked_chol.py)."""
     from ..ops.blocked_chol import chol_for_state
     return state._replace(P=chol_for_state(state.P, state.n_active))
 

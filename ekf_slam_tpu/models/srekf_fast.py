@@ -1,12 +1,12 @@
 """Fast square-root EKF-SLAM: the O(M·D²) GEMM-only update path.
 
 ``models/srekf.py`` keeps the factor lower-triangular by QR-ing a
-(2M+D)×(2M+D) pre-array every update — O((2M+D)³) Householder work that
-XLA's TPU QR executes at a tiny fraction of MXU peak.  At the 10k-landmark
-scale (D ≈ 20k, 2M = 4096) that is ~2·10¹³ badly-scheduled FLOPs per tick:
-the square-root option existed but was unusable exactly where f32
-conditioning needs it most (measured 53 updates/s, BASELINE.md; the dense
-update it guards is the reference's (I−KH)·P at EKF_SLAM_UC.m:142-146).
+(2M+D)×(2M+D) pre-array every update — O((2M+D)³) Householder work, a
+sequential recurrence that runs far below matmul rate.  At the
+10k-landmark scale (D ≈ 20k, 2M = 4096) that is ~2·10¹³ badly-scheduled
+FLOPs per tick: the square-root option would be unusable exactly where f32
+conditioning needs it most (the dense update it guards is the reference's
+(I−KH)·P at EKF_SLAM_UC.m:142-146).
 
 This module drops the triangularity invariant instead of the cost:
 
@@ -26,7 +26,7 @@ This module drops the triangularity invariant instead of the cost:
   S'·S'ᵀ = P − S·Gᵀ·G·Sᵀ = P − P·Hᵀ·Sm⁻¹·H·P **exactly** — the Kalman
   posterior.  Every triangular solve is replaced by an explicit
   triangular inverse (one trsm against eye) + GEMM so the D-wide work
-  runs at MXU rate, the same scheduling lesson as models/batched.py's
+  runs at matmul rate, the same scheduling choice as models/batched.py's
   Cholesky-inverse gain.  Cost: two [D,D]×[D,2M] GEMMs (S·Gᵀ and the
   correction) + three [2M,2M]×[2M,D] GEMMs + one [2M,2M] Cholesky —
   O(M·D²), vs the QR path's O((2M+D)³).
@@ -37,7 +37,7 @@ This module drops the triangularity invariant instead of the cost:
   ``params.sr_noise_buffer`` extra dims (state.init_state(extra_dims=...));
   one is consumed per predict and all are reclaimed by a periodic
   ``sr_recompress`` (dense P = SSᵀ via one D³ GEMM + one Cholesky — both
-  MXU-blocked, amortized over the buffer period, unlike the per-tick QR
+  GEMM-blocked, amortized over the buffer period, unlike the per-tick QR
   they replace).
 
 Invariant (tests/test_srekf_fast.py): never-touched slot and buffer
@@ -61,7 +61,7 @@ from ..ops.angles import cosd, sind, wrap_to_180, wrap_to_360
 from ..ops.observations import ObsBatch
 from ..state import FilterState
 from . import ekf
-from .batched import _innovation_blocks
+from .batched import _innovation_blocks, gather_pairs
 from .srekf import sr_append, sr_strips
 
 
@@ -97,9 +97,7 @@ def _hs_rows(S: jnp.ndarray, x: jnp.ndarray, zs: jnp.ndarray,
     nu = (nu * vmask[:, None]).reshape(2 * M)
 
     rows = 3 + 2 * slots                                       # i32[M]
-    from ..ops.pallas.kernels import gather_pairs
-    Slm = gather_pairs(S, rows, params.rows_gather).reshape(
-        M, 2, D).astype(dt)
+    Slm = gather_pairs(S, rows).reshape(M, 2, D).astype(dt)
     Spose = S[:3].astype(dt)                                   # [3,D]
     HS = (jnp.einsum("mij,jd->mid", A, Spose)
           + jnp.einsum("mij,mjd->mid", B, Slm)).reshape(2 * M, D)
@@ -133,7 +131,7 @@ def _sqrt_noise_block(Rs: jnp.ndarray, valid: jnp.ndarray, dt) -> jnp.ndarray:
 def sr_update_andrews(state: FilterState, zs: jnp.ndarray, slots: jnp.ndarray,
                       Rs: jnp.ndarray, valid: jnp.ndarray, params: EKFParams
                       ) -> FilterState:
-    """Joint square-root update of M observations in O(M·D²) MXU work.
+    """Joint square-root update of M observations in O(M·D²) GEMM work.
 
     Exactness (f64 parity vs models/batched.update_batch in
     tests/test_srekf_fast.py): for α = (I+W)⁻¹ the posterior gram is
@@ -164,9 +162,9 @@ def sr_update_andrews(state: FilterState, zs: jnp.ndarray, slots: jnp.ndarray,
     Sm = Sm.at[d1, d1].add(sqR[d1, d0] ** 2 + sqR[d1, d1] ** 2)
 
     # Explicit triangular inverses: ONE trsm each against eye (O(M³) at
-    # trsm rate), then every D-wide application is a full-rate GEMM — a
-    # left-solve against the D-wide HS would run ~6× slower (the measured
-    # TRSM wall from models/batched.py's gain schedule).
+    # trsm rate), then every D-wide application is a full-rate GEMM
+    # instead of a left-solve against the D-wide HS (models/batched.py's
+    # gain schedule).
     eye = jnp.eye(2 * M, dtype=dt)
     C = jnp.linalg.cholesky(Sm)                                # lower
     Cinv = lax.linalg.triangular_solve(C, eye, left_side=True, lower=True)
@@ -196,7 +194,8 @@ def sr_update_chunked(state: FilterState, zs: jnp.ndarray,
     Same scheduling economics as batched.update_chunked: the two O(M·D²)
     factor GEMMs are chunk-invariant, while the O(M²·D) G/Y GEMMs and the
     O(M³) Cholesky/inverses shrink by G and G² — at 10k landmarks the
-    chunk-512 schedule carries over from the dense path (BASELINE.md)."""
+    chunk-512 schedule carries over from the dense path
+    (utils/schedule.py)."""
     G = max(1, int(params.update_chunks))
     M = zs.shape[0]
     if G == 1 or G >= M:
@@ -250,9 +249,8 @@ def sr_recompress(state: FilterState) -> FilterState:
     """General factor → fresh lower-triangular factor of the same P.
 
     One D×D GEMM (P = S·Sᵀ) + one blocked Cholesky
-    (ops/blocked_chol.chol_blocked: all O(D³) work as MXU GEMMs — XLA's
-    own Cholesky measured 248 ms at D≈20k, the wall that round 3 could
-    only amortize).  Restores every inactive/buffer column to exact
+    (ops/blocked_chol.chol_blocked: all O(D³) work as GEMMs).  Restores
+    every inactive/buffer column to exact
     zero, so the noise-column budget resets.  Conditioning: the Gram
     S·Sᵀ of a real factor is PSD by construction, but FORMING it squares
     the condition number — the chol route is valid only for
@@ -265,12 +263,8 @@ def sr_recompress(state: FilterState) -> FilterState:
     safety envelope, at XLA's (slow) Householder rate — an emergency
     path, not a schedule."""
     from ..ops.blocked_chol import chol_for_state
-    from ..ops.pallas.kernels import syrk_gram
-    # the Gram runs as a plain XLA matmul: the half-flop Pallas mirror
-    # kernel is RETIRED (XLA's S·Sᵀ measured 97.3 ms vs the kernel's
-    # 108 at D=20480 — XLA already exploits the A·Aᵀ structure,
-    # BASELINE.md round 4); pass use_pallas=True only as an experiment
-    G = syrk_gram(state.P).astype(state.P.dtype)
+    S = state.P
+    G = jnp.matmul(S, S.T, preferred_element_type=S.dtype)
     L_tri = chol_for_state(G, state.n_active)
     tri = state._replace(P=L_tri)
     D = tri.P.shape[0]
@@ -291,7 +285,7 @@ def sr_update_panel(state: FilterState, zs: jnp.ndarray, slots: jnp.ndarray,
     """Strict-triangular joint update: the round-4 replacement for the
     O((2M+D)³) QR pre-array (srekf.sr_update_batch) at scale.
 
-    Two phases, both MXU-dominated:
+    Two phases, both GEMM-dominated:
       1. the chunked closed-form Andrews update (factor-space algebra
          only — unconditionally PSD), O(M·D²) GEMMs;
       2. fused re-triangularization: Gram + blocked Cholesky
@@ -299,9 +293,9 @@ def sr_update_panel(state: FilterState, zs: jnp.ndarray, slots: jnp.ndarray,
 
     Why not the textbook blocked partial-Householder (compact-WY panel
     QR of the pre-array)?  Its panel factorization is a sequential
-    recurrence over 2M Householder columns — latency-bound on TPU, where
-    each tiny step pays vector-unit and loop overhead the MXU cannot
-    amortize.  The Gram-based route (CholeskyQR lineage) moves the same
+    recurrence over 2M Householder columns — latency-bound, each tiny
+    step paying loop overhead that no matmul amortizes.  The Gram-based
+    route (CholeskyQR lineage) moves the same
     information through matmuls; the innovation Gram is R-regularized
     (benign), and the posterior is only ever represented through factors
     so rounding cannot make it indefinite.  The irreducible premium of a

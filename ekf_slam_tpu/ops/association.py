@@ -53,9 +53,9 @@ def _exclusive(is_new: jnp.ndarray, slot: jnp.ndarray,
 def _lm_diag_blocks(P: jnp.ndarray, K: int) -> jnp.ndarray:
     """Per-landmark 2×2 diagonal blocks of P as [K,2,2].
 
-    Extracted via three diagonal strips + stride-2 slices — on TPU this is
-    effectively free, whereas the natural advanced-indexing block gather
-    costs ~3 ms at K=1k (measured; gathers are the pipeline's enemy)."""
+    Extracted via three diagonal strips + stride-2 slices: strided slices
+    of contiguous diagonals, where the natural advanced-indexing block
+    gather would be a scattered read of 4K elements."""
     end = 3 + 2 * K
     d0 = jnp.diagonal(P)
     d1 = jnp.diagonal(P, 1)
@@ -70,9 +70,9 @@ def _phi_base(A: jnp.ndarray, B: jnp.ndarray, Prr: jnp.ndarray,
               Prl: jnp.ndarray, Pll: jnp.ndarray) -> jnp.ndarray:
     """Φ0_k = A·Prr·Aᵀ + A·Prl·Bᵀ + B·Prlᵀ·Aᵀ + B·Pll·Bᵀ as [K,2,2].
 
-    Fully unrolled over the tiny (2,3) dims: ~60 [K]-vector mul-adds on the
-    VPU.  Batched 2×3 matmuls would be padded onto MXU tiles — orders of
-    magnitude more silicon for the same math."""
+    Fully unrolled over the tiny (2,3) dims: ~60 [K]-vector mul-adds that
+    XLA fuses into one elementwise pass.  Batched 2×3 matmuls would be
+    padded onto matrix-unit tiles — far more work for the same math."""
     K = A.shape[0]
 
     def accum(i, j):
@@ -174,8 +174,8 @@ def batch_costs(state, zs: jnp.ndarray, Rs: jnp.ndarray, params: EKFParams,
     P-dependent base Φ0 is assembled ONCE from P's pose strip and
     landmark-diagonal blocks, then each measurement adds its own R in
     rank-1 broadcast form — every intermediate is a single [M,K] plane
-    (the naive [M,K,2,2] Φ tensor costs 4× the HBM traffic and the gate
-    is bandwidth-bound; measured 0.74 ms/batch at M=512, K=1k)."""
+    (the naive [M,K,2,2] Φ tensor costs 4× the memory traffic and the
+    gate is bandwidth-bound)."""
     x, P = state.x, state.P
     K = state.capacity
     th = x[2]
@@ -244,8 +244,7 @@ def batch_costs(state, zs: jnp.ndarray, Rs: jnp.ndarray, params: EKFParams,
 
 
 def gate_batch(state, zs: jnp.ndarray, Rs: jnp.ndarray, params: EKFParams,
-               use_pallas: bool = False, strips=None,
-               return_losers: bool = False
+               strips=None, return_losers: bool = False
                ) -> Tuple[jnp.ndarray, ...]:
     """Associate M measurements at once: (is_new [M], slot [M]).
 
@@ -254,10 +253,6 @@ def gate_batch(state, zs: jnp.ndarray, Rs: jnp.ndarray, params: EKFParams,
     claimant under association='ml_unique' (all-False in other modes) —
     by default such losers come back is_new=True and downstream appends
     turn each into a new landmark (see EKFParams.ml_losers).
-
-    ``use_pallas``: evaluate the [M,K] cost matrix with the fused Pallas
-    kernel (ops/pallas/gating.py — ML cost, wrapped innovation, symmetric-P
-    assumption) instead of the XLA strip path.
 
     ``strips``: optional precomputed (Prr [3,3], Prl [K,3,2], Pll [K,2,2])
     in place of reading them from ``state.P`` — used by the square-root
@@ -270,29 +265,6 @@ def gate_batch(state, zs: jnp.ndarray, Rs: jnp.ndarray, params: EKFParams,
     so the per-measurement work is O(K) elementwise with no extra reads of
     P.  This is the fast path behind models/batched.measure_batched; the
     scalar ``gate`` keeps the reference's one-at-a-time semantics."""
-    if use_pallas:
-        import jax as _jax
-        from .pallas.gating import gate_costs_pallas, strips_from_state
-        lm_s, sig_s, act_s, prr_s, prl_s, pll_s = strips_from_state(state)
-        rdiag = jnp.stack([Rs[:, 0, 0], Rs[:, 1, 1]], axis=-1)
-        cost = gate_costs_pallas(state.x[:3], prr_s, zs, rdiag, lm_s,
-                                 sig_s, act_s, prl_s, pll_s, params.s_cost,
-                                 wrap_innovation=not params.ref_compat,
-                                 interpret=(_jax.devices()[0].platform
-                                            != "tpu"))
-        inf = jnp.asarray(jnp.inf, cost.dtype)
-        passes = cost <= jnp.asarray(params.s_thresh, cost.dtype)
-        is_new = jnp.logical_not(jnp.any(passes, axis=1))
-        slot = jnp.argmin(jnp.where(passes, cost, inf),
-                          axis=1).astype(jnp.int32)
-        if params.association == ASSOC_ML_UNIQUE:
-            best = jnp.take_along_axis(cost, slot[:, None], 1)[:, 0]
-            out = _exclusive(is_new, slot, best, state.capacity)
-            return out if return_losers else out[:2]
-        if return_losers:
-            return is_new, slot, jnp.zeros_like(is_new)
-        return is_new, slot
-
     position_cost, signature_cost = batch_costs(state, zs, Rs, params,
                                                 strips=strips)
     x = state.x

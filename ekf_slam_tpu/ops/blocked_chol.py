@@ -1,14 +1,13 @@
-"""Blocked right-looking Cholesky: O(D³) factorization at MXU rate.
+"""Blocked right-looking Cholesky: O(D³) factorization at matmul rate.
 
-XLA's `jnp.linalg.cholesky` on TPU runs its panel recursion at a small
-fraction of matmul peak for large D — measured **248 ms** for the
-D=20,483 factorization inside `sr_recompress` (BASELINE.md round 3),
-which priced triangular square-root filtering out of the 10k-landmark
-regime (the conditioning story the reference's (I−KH)·P form at
-/root/reference/EKF_SLAM_UC.m:146 needs most at that scale).
+A Cholesky's panel recursion is sequential; at large D (≈20k inside
+`sr_recompress` at 10k landmarks) whether it runs near matmul rate
+decides whether triangular square-root filtering is affordable at all
+(the conditioning story the reference's (I−KH)·P form at
+EKF_SLAM_UC.m:146 needs most at that scale).
 
 This module restructures the factorization so that all O(D³) work is
-plain MXU GEMMs and only O(D·b²) runs through XLA's sequential kernels:
+plain GEMMs and only O(D·b²) runs through XLA's sequential kernels:
 
     for each panel k (width b, statically unrolled under jit):
         L_kk   = chol(A_kk)                       # b×b XLA chol
@@ -17,8 +16,7 @@ plain MXU GEMMs and only O(D·b²) runs through XLA's sequential kernels:
         A[k+1:, k+1:] −= L_col @ L_colᵀ           # GEMM  (trailing syrk)
 
 The explicit b×b inverse + GEMM in place of a D-wide triangular solve is
-the same scheduling lesson as models/batched.py's Cholesky-inverse gain
-(TRSM against wide RHS measured ~6× below GEMM rate on this chip).
+the same scheduling choice as models/batched.py's Cholesky-inverse gain.
 
 Used by: models/srekf_fast.sr_recompress (factor reclamation),
 models/srekf.factor_from_state at scale, and the round-4 panel update
@@ -39,9 +37,8 @@ def tri_inv_blocked(L: jnp.ndarray, block: int = 512) -> jnp.ndarray:
     """L⁻¹ for lower-triangular L with the O(d³) work as GEMMs.
 
     Recursive 2×2 block partition: inv([[A,0],[B,C]]) =
-    [[A⁻¹,0],[−C⁻¹·B·A⁻¹, C⁻¹]] — only ≤``block``-sized trsms remain
-    (TPU TRSM against a wide RHS runs ~6× below GEMM rate, the measured
-    wall models/batched.py documents)."""
+    [[A⁻¹,0],[−C⁻¹·B·A⁻¹, C⁻¹]] — only ≤``block``-sized trsms remain,
+    so no triangular solve runs against a wide right-hand side."""
     d = L.shape[0]
     if d <= block:
         return lax.linalg.triangular_solve(
@@ -71,7 +68,7 @@ def chol_blocked(A: jnp.ndarray, block: int = 512) -> jnp.ndarray:
         return jnp.linalg.cholesky(A)
     if D <= block:
         # recursive panel: a large diagonal block factors through the
-        # same GEMM-dominated scheme at block 512 (chip: XLA's chol of a
+        # same GEMM-dominated scheme at block 512 (XLA's chol of a
         # 1024-2048 panel is itself panel-sequential)
         return chol_blocked(A, block=512)
     dt = A.dtype

@@ -5,7 +5,7 @@ Supplies the loop-closure *measurement* the submap layer needs
 frames and an initial guess, estimate the relative rigid transform.  No
 reference analog — the reference has no loop closure at all (SURVEY.md §5).
 
-TPU shape discipline: fixed iteration count (lax.scan), brute-force [N,M]
+Shape discipline: fixed iteration count (lax.scan), brute-force [N,M]
 nearest-neighbor distances (a single fused distance matrix — no KD trees,
 no data-dependent shapes), masked correspondence rejection, closed-form 2-D
 Procrustes per iteration (no SVD: the optimal rotation angle is
@@ -27,10 +27,17 @@ class ICPResult(NamedTuple):
     n_inliers: jnp.ndarray  # i32  matched pairs within the threshold
 
 
+def _rotate(c, s, x, y):
+    """(c·x − s·y, s·x + c·y), elementwise: the 2-D rotations here stay
+    exact f32 instead of running as tiny matmuls at the backend's default
+    precision (TF32 on a GPU, whose rounding biases every tick's
+    estimated heading)."""
+    return c * x - s * y, s * x + c * y
+
+
 def _transform(pts: jnp.ndarray, pose: jnp.ndarray) -> jnp.ndarray:
-    c, s = cosd(pose[2]), sind(pose[2])
-    rot = jnp.stack([jnp.stack([c, -s]), jnp.stack([s, c])])
-    return pts @ rot.T + pose[:2]
+    x, y = _rotate(cosd(pose[2]), sind(pose[2]), pts[:, 0], pts[:, 1])
+    return jnp.stack([x + pose[0], y + pose[1]], axis=-1)
 
 
 def icp(src: jnp.ndarray, src_valid: jnp.ndarray, dst: jnp.ndarray,
@@ -65,11 +72,10 @@ def icp(src: jnp.ndarray, src_valid: jnp.ndarray, dst: jnp.ndarray,
         den = jnp.sum(w * (cs[:, 0] * ct[:, 0] + cs[:, 1] * ct[:, 1]))
         dth = jnp.rad2deg(jnp.arctan2(num, den))
         c, s = cosd(dth), sind(dth)
-        rot = jnp.stack([jnp.stack([c, -s]), jnp.stack([s, c])])
-        t = mu_t - rot @ mu_s
+        t = mu_t - jnp.stack(_rotate(c, s, mu_s[0], mu_s[1]))
 
         # compose the increment onto the running pose
-        new_t = rot @ pose[:2] + t
+        new_t = jnp.stack(_rotate(c, s, pose[0], pose[1])) + t
         new_pose = jnp.concatenate(
             [new_t, wrap_to_180(pose[2] + dth)[None]])
         return new_pose.astype(dt), None

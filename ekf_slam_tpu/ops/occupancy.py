@@ -2,7 +2,7 @@
 
 SLAM.m:118-124 transforms scans into a world frame with a hard-coded +12.5
 grid offset and calls ``setOccupancy`` — commented out and non-functional.
-This module provides the real thing, TPU-native: a log-odds occupancy grid
+This module provides the real thing: a log-odds occupancy grid
 updated from (pose, scan) wholly on device.
 
 Design: no Bresenham (data-dependent loop lengths don't jit).  Each beam is

@@ -87,6 +87,19 @@ def point_line_dist(points: jnp.ndarray, m, b) -> jnp.ndarray:
     return jnp.abs(m * points[:, 0] - points[:, 1] + b) / jnp.sqrt(m * m + 1.0)
 
 
+def score_lines(points: jnp.ndarray, valid: jnp.ndarray,
+                lines: jnp.ndarray, thresh) -> jnp.ndarray:
+    """Inlier counts i32[NH] of the valid points within ``thresh`` of each
+    line y = m·x + b (``lines`` [NH,2]) — the per-point, per-line loop of
+    RANSAC.m:190-198 as one [NH,B] compare and row sum, which XLA fuses
+    into a single reduction."""
+    m, b = lines[:, 0:1], lines[:, 1:2]                       # [NH,1]
+    x, y = points[None, :, 0], points[None, :, 1]             # [1,B]
+    d = jnp.abs(m * x - y + b) / jnp.sqrt(m * m + 1.0)
+    inl = (d < thresh) & valid[None, :]
+    return jnp.sum(inl, axis=1, dtype=jnp.int32)
+
+
 def perpendicular_foot(m, b) -> jnp.ndarray:
     """Foot of the perpendicular from the world origin to y = m·x + b —
     closed form for the symbolic solve at RANSAC.m:217-232."""
@@ -296,13 +309,11 @@ def find_walls_batched(points: jnp.ndarray, valid: jnp.ndarray,
     Instead of the reference's one-seed-per-round sequential search
     (RANSAC.m:114-128), sample NH seed points simultaneously, fit NH trial
     lines from their bearing windows, score ALL of them in one fused pass
-    (ops/pallas/kernels.score_lines), then greedily accept up to
+    (score_lines), then greedily accept up to
     ``wall_search_timeout`` winners whose inlier sets don't overlap.  Same
     output contract as find_walls; more hypotheses → better walls per scan
     AND fewer sequential steps.
     """
-    from .pallas.kernels import score_lines
-
     B = points.shape[0]
     T = params.wall_search_timeout
     NH = n_hypotheses

@@ -39,11 +39,14 @@ def to_cartesian(scan: Scan) -> jnp.ndarray:
 
 def to_world(points_local: jnp.ndarray, pose: jnp.ndarray) -> jnp.ndarray:
     """Rigid transform into the world frame (RANSAC.m:103-106):
-    rot(theta_deg) · p + [x, y]."""
+    rot(theta_deg) · p + [x, y], written elementwise — a [B,2]×[2,2]
+    matmul would run at the backend's default matmul precision (TF32 on
+    a GPU), rounding every world point and biasing the rotation."""
     th = pose[2]
     c, s = cosd(th), sind(th)
-    rot = jnp.stack([jnp.stack([c, -s]), jnp.stack([s, c])])
-    return points_local @ rot.T + pose[:2]
+    x, y = points_local[:, 0], points_local[:, 1]
+    return jnp.stack([c * x - s * y + pose[0], s * x + c * y + pose[1]],
+                     axis=-1)
 
 
 def scan_to_world(scan: Scan, pose: jnp.ndarray) -> jnp.ndarray:

@@ -1,9 +1,11 @@
 """Device-mesh helpers.
 
 The reference has no parallelism of any kind (single-threaded MATLAB,
-SURVEY.md §2); this layer is the TPU-native scaling story: covariance
-row-tiles sharded over a ``map`` axis (ICI within a slice), with an optional
-``data`` axis for batched independent sessions (multi-robot / multi-world).
+SURVEY.md §2); this layer is the scaling story: covariance row-tiles
+sharded over a ``map`` axis, with an optional ``data`` axis for batched
+independent sessions (multi-robot / multi-world).  The cards of one host
+reach each other all to all, so the mesh takes the first n devices in
+order and follows the algorithm alone.
 """
 from __future__ import annotations
 

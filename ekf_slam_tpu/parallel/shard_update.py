@@ -6,16 +6,16 @@ so the communication pattern is explicit, auditable, and independently
 benchmarkable.  With P row-tiled over the ``map`` axis (device d owns
 ``P[rows_d, :]``) and the dense observation model Hᵀ [D, 2M] replicated:
 
-1. ``PHt_local = P_local @ Ht``                    — pure local MXU work;
+1. ``PHt_local = P_local @ Ht``                    — pure local matmul;
 2. ``S = Σ_d Ht[rows_d]ᵀ @ PHt_local + R``        — **psum**: the
-   Schur-complement combine over ICI (each device contributes its row
+   Schur-complement combine (each device contributes its row
    block's interaction; 2M×2M ≈ 1 MB);
 3. solve + gain: replicated 2M×2M Cholesky, ``Kg_local = PHt_local·S⁻¹``;
 4. ``dx = Σ_d Kg_local @ nu`` restricted to local rows — assembled with a
    second **psum** of masked row contributions (D floats);
 5. ``P_local −= Kg_local @ PHtᵀ`` — needs PHtᵀ's columns for ALL rows:
    one **all_gather** of PHt over the map axis (D×2M), the only
-   volume-bearing collective, riding ICI.
+   volume-bearing collective.
 
 Per-batch communication: O(D·M) bytes regardless of device count — the
 EKF analog of sequence-parallel attention's collective footprint.
@@ -73,25 +73,22 @@ def build_dense_ht(state: FilterState, zs, slots, Rs, valid,
 
 def systolic_syrk_downdate(P_local, W_full, axis: str, n_dev: int):
     """Distributed P ← P − W·Wᵀ exploiting symmetry: the SYRK correction
-    (ops/pallas/kernels.syrk_downdate) brought to a row-sharded P.
+    (models/batched.syrk_downdate) brought to a row-sharded P.
 
     Round-robin over pair distances s = 0..⌊n/2⌋: at step s, device i
-    computes the unordered-pair Gram ``acc = W_i·W_{i−s}ᵀ`` ONCE on the
-    MXU, writes its own tile (i, i−s), and ppermutes ``accᵀ`` to device
-    i−s — whose mirror tile (i−s, i) is the transpose by definition.  So
-    each device does (⌊n/2⌋+1)/n of the full Gram's flops (the
-    single-chip kernel's ~half-flops property, distributed) and the
-    output is bit-symmetric (both tiles of a pair come from the same
-    accumulator, like the single-chip mirror).
+    computes the unordered-pair Gram ``acc = W_i·W_{i−s}ᵀ`` ONCE, writes
+    its own tile (i, i−s), and ppermutes ``accᵀ`` to device i−s — whose
+    mirror tile (i−s, i) is the transpose by definition.  So each device
+    does (⌊n/2⌋+1)/n of the full Gram's flops and the output is
+    bit-symmetric (both tiles of a pair come from the same accumulator).
 
     Communication: ⌊(n−1)/2⌋ ppermutes of one (D/n)² tile each ride the
     ``axis`` ring — O(D²/(2n)) bytes/device/update.  That is OUTSIDE the
     O(D·M) budget of the gemm-form update (module doc), so this is a
-    measured trade: the exchange beats the recompute whenever
-    bytes/(ICI rate) < 2·t²·2M/(MXU rate) — at M=4096 bf16 on ICI-class
-    links the exchange wins ~6×; on DCN it loses.  SCALING.md carries
-    the audit row; the gemm correction stays available where the budget
-    rules.
+    trade: the exchange beats the recompute whenever
+    bytes/(link rate) < 2·t²·2M/(matmul rate).  SCALING.md carries the
+    collective audit; the gemm correction stays available where the
+    budget rules.
 
     For even n the antipodal step s = n/2 is computed on both members of
     the pair (comm-free) rather than exchanged.

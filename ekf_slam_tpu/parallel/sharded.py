@@ -1,4 +1,4 @@
-"""Sharded SLAM session: covariance row-tiles over a TPU mesh.
+"""Sharded SLAM session: covariance row-tiles over a device mesh.
 
 The joint covariance P is the only state that scales (D² at D = 3+2K; 1.6 GB
 at f32 for K = 10k) — everything else is O(K).  The map-scale design
@@ -10,15 +10,15 @@ at f32 for K = 10k) — everything else is O(K).  The map-scale design
   only local rows (columns of P are fully present in each row strip), the
   2×2 innovation solve is replicated, and ``P −= K·(HP)`` is a local
   outer-product per strip.  The only collectives are gathers of the five
-  H-relevant rows of P/PHᵀ — O(D) bytes per observation over ICI, the EKF
-  analog of the Schur-complement cross-tile combine.
+  H-relevant rows of P/PHᵀ — O(D) bytes per observation between devices,
+  the EKF analog of the Schur-complement cross-tile combine.
 * ``predict`` touches rows/cols 0..2 only: one row broadcast + local axpys.
 
 All of this falls out of the single-chip filter functions (models/ekf.py)
 under GSPMD: the code is reused verbatim, with shardings pinned on the carry
 via ``jax.lax.with_sharding_constraint`` so XLA keeps P distributed instead
-of gathering it.  ``shard_map`` kernels for the hot paths live in
-ops/pallas/ as a later optimization layer.
+of gathering it.  The explicit-collective ``shard_map`` form of the hot
+paths lives in parallel/shard_update.py.
 """
 from __future__ import annotations
 
@@ -53,8 +53,8 @@ def _constrain(filt: FilterState, mesh: Mesh) -> FilterState:
 
 @dataclasses.dataclass
 class ShardedSlamSession:
-    """Map-sharded session (BASELINE.json config 4: covariance tiles over a
-    1-host TPU mesh).  API mirrors session.SlamSession."""
+    """Map-sharded session (BASELINE.json config 4: covariance tiles over
+    the devices of one host).  API mirrors session.SlamSession."""
 
     mesh: Mesh
     ekf_params: EKFParams = None
@@ -104,7 +104,7 @@ class ShardedSlamSession:
         # correction='syrk' under sharding: the shard_map update carries a
         # distributed form (parallel/shard_update.systolic_syrk_downdate —
         # half flops via the mirror exchange, bit-symmetric P), so it is
-        # honored there.  Under GSPMD the single-chip Pallas kernel would
+        # honored there.  Under GSPMD the single-device form would
         # force a full-P gather, and the corrections are semantically
         # identical (same W·Wᵀ downdate, different schedule) — revert to
         # the distributed GEMM form rather than reject, so

@@ -133,9 +133,9 @@ class SlamSession:
     collect_nis: bool = False
     #: donate the carry to the per-tick step program so the covariance is
     #: updated IN PLACE — without it, XLA holds input and output P
-    #: simultaneously, and past ~20k landmarks a second P buffer does not
-    #: fit in HBM (the 32k single-chip ceiling runs 8.3 GB bf16 P on a
-    #: 16 GB chip — chip_r3b stage U).  None = auto: on when P ≥ 2 GB.
+    #: simultaneously, and near the capacity ceiling a second P buffer does
+    #: not fit in device memory.  None = auto: on once P alone takes a
+    #: quarter of the device's memory (utils/runtime.device_memory_bytes).
     #: With donation, a carry passed to ``step`` is CONSUMED — keep only
     #: the returned carry.  ``run()``'s fused lax.scan still
     #: double-buffers its carry internally; at the capacity ceiling,
@@ -161,12 +161,11 @@ class SlamSession:
             self.ransac_params = RansacParams(dtype=self.ekf_params.dtype)
         self._init_table, self._extract = EXTRACTORS[self.extractor]
         if self.donate_carry is None:
-            # auto: in-place stepping once P alone is a 2 GB-class buffer
+            # auto: in-place stepping once P alone is a quarter of memory
+            from .utils.runtime import device_memory_bytes
             d = self.ekf_params.dim
-            if self.ekf_params.correction == "syrk":
-                d = -(-d // 512) * 512
             p_bytes = d * d * jnp.dtype(self.ekf_params.cov_dt).itemsize
-            self.donate_carry = p_bytes >= 2 * 1024 ** 3
+            self.donate_carry = 4 * p_bytes >= device_memory_bytes()
         step = self._make_step()
         self._step = (jax.jit(step, donate_argnums=(0,))
                       if self.donate_carry else jax.jit(step))
@@ -201,17 +200,7 @@ class SlamSession:
             filt = factor_from_state(filt)
             sr_tick = jnp.zeros((), jnp.int32)
         else:
-            # correction='syrk' needs D % tile == 0 to engage the Pallas
-            # SYRK kernel (ops/pallas/kernels.syrk_downdate) — pad here
-            # so session users get the kernel, not the fallback warning
-            # (same auto-configuration precedent as ShardedSlamSession's
-            # masked_writes).  Pad to 512, not 128: every chip measurement
-            # behind promoting syrk used tile=512 (BASELINE.md round-3
-            # table, D=20480), and syrk_tile() picks the largest tile that
-            # divides D — a 128-padded D would silently run the unmeasured
-            # tile-128 grid.
-            pad = 512 if self.ekf_params.correction == "syrk" else 1
-            filt = init_state(self.ekf_params, pad_to_multiple_of=pad)
+            filt = init_state(self.ekf_params)
             if self.ekf_params.update_mode == "srekf":
                 # carry the Cholesky factor in the P field (models/srekf.py)
                 from .models.srekf import factor_from_state

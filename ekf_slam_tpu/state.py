@@ -2,7 +2,7 @@
 
 The reference grows its joint state by concatenation on every new landmark
 (EKF_SLAM.m:79 ``h.x=[h.x, lx, ly]``, :91-97 covariance block growth), so every
-shape is dynamic.  On TPU that would force a recompile per landmark; instead
+shape is dynamic.  Under jit that would force a recompile per landmark; instead
 the state is padded to a fixed capacity K and "append" becomes a masked write
 (SURVEY.md §7).  The whole filter state is one pytree, which also makes
 checkpoint/resume (utils/checkpointing.py) a single serialization.

@@ -1,33 +1,24 @@
-"""Measured update-scheduling heuristics: the fast config for a map size.
+"""Update-scheduling heuristics: the fast config for a map size.
 
 The joint batched update's cost splits into an irreducible O(D²·M)
 correction GEMM, an O(D·M) row gather (pht_mode='rows'), and quadratic
 O(M²)-O(M³) innovation terms (S build, Cholesky+inverse, gain GEMM).
-Their balance flips with D, and the best (batch, chunks, pht_mode) was
-measured on a v5e chip (BASELINE.md round-2 tables):
+Their balance flips with D:
 
-* small maps (K ≤ ~2k): the solve dominates → dense P·Hᵀ (the row gather
-  overhead loses), large batches, chunk-256 scheduling, f32 storage
-  (the dense GEMMs hid any bandwidth share bf16 would recover);
-* large maps (K > ~2k): the GEMMs dominate → rows-mode P·Hᵀ (symmetry,
+* small maps (K ≤ 2000): the solve dominates → dense P·Hᵀ, large
+  batches, chunk-256 scheduling, f32 storage;
+* large maps (K > 2000): the GEMMs dominate → rows-mode P·Hᵀ (symmetry,
   no dense D²·2M GEMM), M=4096 batches, chunk-512 scheduling (quadratic
-  terms cut G²× at constant correction flops), and **bf16 covariance
-  storage** — rows mode re-exposes a bandwidth share, so halving P's HBM
-  bytes pays (+8% measured) while all contractions still accumulate in
-  f32 on the MXU and bf16-P passes its accuracy/gate-parity/session
-  tests (tests/test_mixed_precision.py).  Measured at 10k:
-  26.6k (r1) → 59.7k f32 → 65.3k bf16 M=4096 G=8 (BASELINE.md).
+  terms cut G²× at constant correction flops), bf16 covariance storage
+  (halves the bytes of the P passes; every large contraction still
+  accumulates in f32, tests/test_mixed_precision.py) and the symmetric
+  ``correction='syrk'`` form.
 
-``recommended_schedule`` returns those defaults; bench.py and user code
+These constants were tuned on the accelerator this engine was first built
+for and have not been re-derived on the current card yet (ROADMAP Queue 1
+item 4).  ``recommended_schedule`` returns them; bench.py and user code
 share it so the tuned configuration is a product feature, not a
 benchmark detail.
-
-The 2000-capacity boundary is measured, not inherited: probing both
-schedules at mid-size maps (experiments/prof_midsize.py, chip medians)
-gives small-style 475k vs large-style 390k at K=2000, flipping to
-297k vs 261k at K=3000 (large wins from there: 235k vs 165k at 4k,
-148k vs 85k at 6k) — the crossover sits between 2k and 3k, on the
-small side of which the boundary already lies.
 """
 from __future__ import annotations
 
@@ -41,23 +32,12 @@ from ..config import EKFParams
 
 def recommended_schedule(capacity: int, batch: Optional[int] = None
                          ) -> dict:
-    """(batch, update_chunks, pht_mode, cov_dtype) measured-fastest for
+    """(batch, update_chunks, pht_mode, cov_dtype, correction) for
     ``capacity``.
 
     ``batch``: override the observation batch size M; chunks then target
-    the measured optimum chunk length (256 small-map / 512 large-map).
-
-    The large-map schedule is chip-validated through the capacity
-    ceiling: 15.2k updates/s at 20k landmarks and 5.5k at 32k (8.3 GB
-    bf16 P — the single-buffer regime, where SlamSession's donated step
-    + the aliased SYRK correction are what make it runnable at all;
-    BASELINE.md capacity-ceiling table)."""
+    the chunk length of the schedule (256 small-map / 512 large-map)."""
     if capacity <= 2000:
-        # round-4 promotion: chunk-256 scheduling with the batch at the
-        # measured throughput knee.  Clean solo medians-of-5 at 1k
-        # (spreads ≤0.6%): M=2048 → 799.5k, M=4096 → 838.1k (+4.8%),
-        # M=8192 → 858.9k (+2.5%), M=16384 → 866.7k (+0.9%, flattening)
-        # — M=8192 is the knee; larger batches buy <1% per doubling.
         m = batch or 8192
         return {"batch": m, "update_chunks": max(1, m // 256),
                 "pht_mode": "dense", "cov_dtype": None,
@@ -70,7 +50,7 @@ def recommended_schedule(capacity: int, batch: Optional[int] = None
 
 def tuned_params(params: EKFParams, batch: Optional[int] = None,
                  cov_dtype: Any = "auto") -> EKFParams:
-    """``params`` with the measured scheduling knobs applied.
+    """``params`` with the scheduling knobs applied.
 
     ``cov_dtype``: 'auto' applies the schedule's recommended covariance
     storage dtype (bf16 for large maps); pass ``None`` (or a dtype) to
@@ -85,9 +65,8 @@ def tuned_params(params: EKFParams, batch: Optional[int] = None,
         return dataclasses.replace(params,
                                    update_chunks=s["update_chunks"])
     cd = s["cov_dtype"] if cov_dtype == "auto" else cov_dtype
-    # the SYRK correction only beats the fused XLA GEMM with bf16 P
-    # (chip: 71.6k vs 68.1k at bf16; 52.5k vs ~57k at f32, BASELINE.md) —
-    # an f32 opt-out therefore also reverts the correction
+    # the schedule pairs the symmetric correction with bf16 storage; an
+    # f32 opt-out also reverts the correction
     corr = s["correction"] if cd == jnp.bfloat16 else "gemm"
     return dataclasses.replace(params, update_chunks=s["update_chunks"],
                                pht_mode=s["pht_mode"], cov_dtype=cd,

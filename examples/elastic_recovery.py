@@ -18,6 +18,8 @@ import numpy as np
 
 
 def main():
+    from ekf_slam_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=120)
     ap.add_argument("--every", type=int, default=20)

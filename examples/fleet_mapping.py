@@ -19,6 +19,8 @@ from ekf_slam_tpu.sim import world as W
 
 
 def main():
+    from ekf_slam_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--robots", type=int, default=4)
     ap.add_argument("--ticks", type=int, default=150)

@@ -18,9 +18,9 @@ Controls come from noisy odometry by default; --control fused uses
 scan-to-scan ICP with odometry fallback (ops/icp.py) — lidar odometry,
 which is what keeps dead-reckoning drift inside the gate at large scale.
 
-CPU-runnable at the default size (3x3 rooms); the chip campaign at
-16x16 rooms / ~2k landmarks lives in experiments/chip_r5_world.py with
-its results recorded in BASELINE.md.
+CPU-runnable at the default size (3x3 rooms); the campaign at 16x16
+rooms / ~2k landmarks runs on the card in chip_smoke.py's pipeline phase
+and in experiments/chip_r5_world.py.
 """
 import argparse
 import sys
@@ -41,8 +41,7 @@ def campaign_params(capacity: int, dtype, control: str = "fused",
     Extractor: batched-hypothesis search with tightened refits plus the
     gap/kink splitters — without them, merged near-collinear walls put
     ~1 m errors on the perpendicular-foot landmarks (the world-origin
-    lever arm amplifies fitted-angle error; measured in BASELINE.md's
-    round-5 extractor table).  Filter: constant-std measurement noise
+    lever arm amplifies fitted-angle error).  Filter: constant-std measurement noise
     (noise_model='constant'; the reference's value-scaled R makes the
     gate's tightness depend on the bearing's wrap convention) and a
     process-noise floor matched to the control source's per-tick error
@@ -140,6 +139,8 @@ def run_campaign(rooms: int, ticks: int, capacity: int, control: str,
 
 
 def main(argv=None):
+    from ekf_slam_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--rooms", type=int, default=3,
                     help="floorplan is rooms x rooms (default 3)")

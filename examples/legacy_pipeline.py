@@ -28,6 +28,8 @@ from ekf_slam_tpu.config import SimConfig
 
 
 def main():
+    from ekf_slam_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     T = 150
     cfg = SimConfig(n_beams=720, max_range=12.0)
     room = W.rectangle_room(4.0, 3.0)

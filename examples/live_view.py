@@ -24,6 +24,8 @@ from ekf_slam_tpu.sim import world as W
 
 
 def main(argv=None):
+    from ekf_slam_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=40)
     ap.add_argument("--gif", default=None,

@@ -21,6 +21,8 @@ from ekf_slam_tpu.state import init_state
 
 
 def main():
+    from ekf_slam_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     rng = np.random.default_rng(0)
     params = EKFParams(capacity=32, max_obs=8, association="known",
                        ref_compat=False, dtype=jnp.float32)

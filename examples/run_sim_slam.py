@@ -25,6 +25,8 @@ from ekf_slam_tpu.utils.metrics import MetricsLogger, filter_health
 
 
 def main():
+    from ekf_slam_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=200)
     ap.add_argument("--frames", type=str, default=None,

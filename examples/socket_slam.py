@@ -13,6 +13,7 @@ Run:  python examples/socket_slam.py [--ticks 60] [--rate-hz 100]
 """
 import argparse
 import multiprocessing as mp
+import os
 import sys
 
 import jax
@@ -39,6 +40,8 @@ def make_session(seed=1):
 
 
 def main(argv=None):
+    from ekf_slam_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=60)
     ap.add_argument("--port", type=int, default=47311)
@@ -97,7 +100,10 @@ def main(argv=None):
         feeder = _Joiner()
     else:
         # Python feeder (spawn, not fork: forking a process that already
-        # initialized JAX's thread pools can deadlock)
+        # initialized JAX's thread pools can deadlock).  The feeder is
+        # NumPy-only; JAX_PLATFORMS=cpu in its environment keeps the
+        # re-imported main module from opening the accelerator this
+        # process holds.
         ctx = mp.get_context("spawn")
         ready = ctx.Event()
         feeder = ctx.Process(
@@ -105,7 +111,15 @@ def main(argv=None):
             args=(args.port, odom, ranges),
             kwargs=dict(rate_hz=args.rate_hz or None, ready_event=ready),
             daemon=True)
-        feeder.start()
+        parent_platforms = os.environ.get("JAX_PLATFORMS")
+        os.environ["JAX_PLATFORMS"] = "cpu"
+        try:
+            feeder.start()
+        finally:
+            if parent_platforms is None:
+                del os.environ["JAX_PLATFORMS"]
+            else:
+                os.environ["JAX_PLATFORMS"] = parent_platforms
         if not ready.wait(timeout=10):
             print("feeder did not come up", file=sys.stderr)
             return 1

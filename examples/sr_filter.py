@@ -70,6 +70,8 @@ def health(P):
 
 
 def main(argv=None):
+    from ekf_slam_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=40)
     ap.add_argument("--landmarks", type=int, default=4)

@@ -1,12 +1,12 @@
-"""Live streaming SLAM — the reference's operating mode, TPU-engineered.
+"""Live streaming SLAM — the reference's operating mode.
 
 Equivalent of test_SLAM.m:16-18's ``while(1) s.runSlam()``: scans+odometry
 arrive one tick at a time (here replayed from a scanlog or a fresh
 simulation at a fixed arrival rate) and the session must keep up.  The
-naive per-tick loop is capped at ~32 fps by the measured ~25-31 ms fixed
-program-dispatch floor; the streaming driver (io/stream.py) micro-batches
-arriving ticks into fused device programs with double-buffered async
-dispatch and reports the latency the robot actually experiences.
+streaming driver (io/stream.py) micro-batches arriving ticks into fused
+device programs with double-buffered async dispatch, paying the fixed
+per-program dispatch cost once per window, and reports the latency the
+robot actually experiences.
 
 Usage:
   python examples/streaming_slam.py [--log path.eksl] [--ticks 256]
@@ -24,6 +24,8 @@ import numpy as np
 
 
 def main():
+    from ekf_slam_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--log", default=None,
                     help="scanlog to replay (default: simulate)")

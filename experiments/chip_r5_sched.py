@@ -1,18 +1,16 @@
-"""Round-5 chip sweep: M/G knee + gemm/syrk A/B at the 20k and 32k
-capacity-ceiling points (VERDICT r4 weak item 2 / next-round item 5).
+"""Capacity sweep: M/G knee + gemm/syrk A/B at 20k and 32k landmarks.
 
-The 20k (15.2k up/s) and 32k (5.5k) BASELINE rows were single-config
-measurements inheriting the 10k-tuned schedule (M=4096, G=8, syrk).  The
-compute balance shifts by 4-10x in D² between those points, so this
-sweep measures the knee properly: medians of R5S_REPS (5) per config,
-with spreads, appended to experiments/results/r5_sched.jsonl.
+The schedule (utils/schedule.py: M=4096, G=8, syrk, bf16 P) was tuned at
+10k; the compute balance shifts by 4-10x in D² between 10k and 32k, so
+this sweep measures the knee at the large points: medians of R5S_REPS (5)
+per config, with spreads, appended to experiments/results/r5_sched.jsonl.
 
   K=20000 (two-buffer regime): M in {2048, 4096, 8192} x syrk, plus the
            same-state gemm A/B at the winner's M;
-  K=32000 (single-buffer, in-program P + aliased SYRK — the stage-U
-           construction from chip_r3b): M in {2048, 4096, 8192} syrk.
+  K=32000 (single-buffer, P built inside the program and updated in
+           place): M in {2048, 4096, 8192} syrk.
 
-Run:  nohup python -m experiments.chip_r5_sched > /tmp/r5s.log 2>&1 &
+Run on the card:  python -m experiments.chip_r5_sched
 Env:  R5S_STAGE=20k|32k|both (both), R5S_REPS (5).
 """
 from __future__ import annotations
@@ -29,7 +27,6 @@ import bench
 from ekf_slam_tpu.config import EKFParams
 from ekf_slam_tpu.models.batched import update_chunked
 from ekf_slam_tpu.ops.association import gate_batch
-from experiments.chip_r3b import _pad
 
 RESULTS = os.path.join(os.path.dirname(__file__), "results",
                        "r5_sched.jsonl")
@@ -44,17 +41,12 @@ def log(rec):
     print("[r5s]", json.dumps(rec), flush=True)
 
 
-def _fetch(out):
-    return float(np.asarray(jax.tree_util.tree_leaves(out)[0]
-                            ).reshape(-1)[0])
-
-
 def _time_reps(run, *args, reps=REPS):
-    _fetch(run(*args))
+    jax.block_until_ready(run(*args))
     ts = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        _fetch(run(*args))
+        jax.block_until_ready(run(*args))
         ts.append(time.perf_counter() - t0)
     ts = np.asarray(ts)
     return (float(np.median(ts)),
@@ -82,7 +74,7 @@ def _chain(params, state, zs_all):
 
 
 def sweep_20k(K=20000):
-    # (M, G, corr); G keeps chunk length 512 (the measured large-map
+    # (M, G, corr); G keeps chunk length 512 (the schedule's large-map
     # chunk) except the chunk-1024 probe
     configs = [(2048, 4, "syrk"), (4096, 8, "syrk"), (8192, 16, "syrk"),
                (4096, 4, "syrk"), (4096, 8, "gemm"), (8192, 16, "gemm")]
@@ -91,7 +83,7 @@ def sweep_20k(K=20000):
         try:
             params = _params(K, M, G, corr)
             if state is None:
-                state = _pad(bench.make_full_state(params, K))
+                state = bench.make_full_state(params, K)
             n_batches = 4
             zs_all = jnp.asarray(bench.make_measurements(
                 state, K, n_batches * M).reshape(n_batches, M, 3),
@@ -99,7 +91,7 @@ def sweep_20k(K=20000):
             dt, spread = _time_reps(_chain(params, state, zs_all),
                                     state, zs_all)
             log({"stage": "20k", "K": K, "M": M, "G": G,
-                 "correction": corr, "D_padded": state.dim,
+                 "correction": corr, "D": state.dim,
                  "updates_per_sec": round(n_batches * M / dt, 1),
                  "spread_pct": round(spread, 1)})
         except Exception as e:
@@ -109,8 +101,7 @@ def sweep_20k(K=20000):
 
 def sweep_32k(K=32000):
     """Single-buffer regime: P built in-program (fused iota-select into
-    bf16), batches unrolled, aliased SYRK — chip_r3b.stage_u's
-    construction, swept over M."""
+    bf16), batches unrolled, P updated in place — swept over M."""
     from ekf_slam_tpu.state import FilterState
 
     rng = np.random.default_rng(0)
@@ -118,8 +109,7 @@ def sweep_32k(K=32000):
     for M, G in ((2048, 4), (4096, 8), (8192, 16)):
         try:
             params = _params(K, M, G, "syrk")
-            D0 = params.dim
-            Dp = -(-D0 // 512) * 512
+            Dp = params.dim
             x = np.zeros(Dp, np.float64)
             x[3:3 + 2 * K] = lm.reshape(-1)
             x_j = jnp.asarray(x, params.dtype)
@@ -156,7 +146,7 @@ def sweep_32k(K=32000):
 
             dt, spread = _time_reps(run, zs_all, reps=max(3, REPS - 2))
             log({"stage": "32k", "K": K, "M": M, "G": G,
-                 "correction": "syrk", "D_padded": Dp,
+                 "correction": "syrk", "D": Dp,
                  "updates_per_sec": round(n_batches * M / dt, 1),
                  "spread_pct": round(spread, 1)})
         except Exception as e:
@@ -166,8 +156,9 @@ def sweep_32k(K=32000):
 
 def main():
     stage = os.environ.get("R5S_STAGE", "both")
-    log({"stage": "start", "platform": jax.devices()[0].platform,
-         "reps": REPS})
+    from ekf_slam_tpu.utils.runtime import device_report, enable_compile_cache
+    enable_compile_cache()
+    log({"stage": "start", "device": device_report(), "reps": REPS})
     if stage in ("20k", "both"):
         sweep_20k()
     if stage in ("32k", "both"):

@@ -1,15 +1,13 @@
-"""Round-5 chip campaign: large-world end-to-end SLAM at scale.
+"""Building-scale campaign: large-world end-to-end SLAM on the card.
 
-VERDICT r4 item 1: the 71k up/s headline had only ever been measured on
-synthetic full states; this runs the FULL pipeline (RANSAC extraction
-with gap/kink splits + fit-propagated noise, ML gating, the tuned
-rows+bf16+syrk batched update, maintenance) in a real session over a
-16x16-room floorplan (~2k wall segments) until thousands of landmarks
-are genuinely mapped — on the real chip — and records ATE / NIS /
-map-accuracy / ticks-per-second, plus the extractor's chip cost per tick
-at campaign table capacity (VERDICT item 2).
+Runs the FULL pipeline (RANSAC extraction with gap/kink splits +
+fit-propagated noise, ML gating, the tuned rows+bf16+syrk batched update,
+maintenance) in a real session over a 16x16-room floorplan (~2k wall
+segments) until thousands of landmarks are genuinely mapped, and records
+ATE / NIS / map-accuracy / ticks-per-second, plus the extractor's cost per
+tick at campaign table capacity.
 
-Run:  nohup python -m experiments.chip_r5_world > /tmp/r5w.log 2>&1 &
+Run on the card:  python -m experiments.chip_r5_world
 Env:  R5W_ROOMS (16), R5W_TICKS (route length), R5W_CAP (2560),
       R5W_REPS (3 timing reps of a 512-tick window).
 Writes experiments/results/r5_world.json.
@@ -35,16 +33,14 @@ CAP = int(os.environ.get("R5W_CAP", "2560"))
 REPS = int(os.environ.get("R5W_REPS", "3"))
 
 
-def _fetch(x):
-    return float(np.asarray(jax.tree_util.tree_leaves(x)[0]).reshape(-1)[0])
-
-
 def main():
     from ekf_slam_tpu.config import SimConfig
     from ekf_slam_tpu.session import SlamSession
     from ekf_slam_tpu.sim import world as W
+    from ekf_slam_tpu.utils.runtime import device_report, enable_compile_cache
     from ekf_slam_tpu.utils.schedule import tuned_params
 
+    enable_compile_cache()
     t_all = time.time()
     dt = jnp.float32
     control = os.environ.get("R5W_CTRL", "icp")
@@ -64,12 +60,12 @@ def main():
     t0 = time.time()
     traj = W.simulate(world, jnp.asarray(ctrl, dt), cfg,
                       jax.random.PRNGKey(0), start_pose=tuple(start))
-    _fetch(traj.ranges)
+    jax.block_until_ready(traj.ranges)
     print(f"[r5w] sim generated in {time.time()-t0:.1f}s", flush=True)
 
     ekf, ransac = campaign_params(CAP, dt, control, 0.5)
     # the tuned large-map schedule: rows-mode P·Hᵀ, bf16 P storage, the
-    # Pallas SYRK correction (utils/schedule.py; VERDICT r4 item 1)
+    # symmetric correction (utils/schedule.py)
     ekf = tuned_params(ekf, batch=ekf.max_obs)
     sess = SlamSession(ekf_params=ekf, ransac_params=ransac, seed=1,
                        control_source=control, collect_nis=True,
@@ -87,7 +83,7 @@ def main():
     t0 = time.time()
     fcarry, outs = sess.run(traj.odom, traj.ranges, traj.beam_angles,
                             carry=carry)
-    _fetch(outs.pose[-1])
+    jax.block_until_ready(outs.pose[-1])
     t_run = time.time() - t0
     print(f"[r5w] full {T}-tick mapping run: {t_run:.1f}s "
           f"({T/t_run:.1f} ticks/s incl. compile)", flush=True)
@@ -100,7 +96,7 @@ def main():
     for _ in range(REPS + 1):
         t0 = time.time()
         c2, o2 = sess.run(odom_w, rng_w, traj.beam_angles)
-        _fetch(o2.pose[-1])
+        jax.block_until_ready(o2.pose[-1])
         ts.append(time.time() - t0)
     ts = np.asarray(ts[1:])
     tps = WIN / float(np.median(ts))
@@ -109,7 +105,7 @@ def main():
           f"{tps:.1f} (median of {REPS}, spread {spread:.1f}%)",
           flush=True)
 
-    # -- extractor-at-scale cost (VERDICT item 2): extraction-only scan
+    # -- extractor-at-scale cost: extraction-only scan
     from ekf_slam_tpu.ops.ransac import extract, init_table
     from ekf_slam_tpu.ops.scan import scan_from_ranges
 
@@ -128,11 +124,11 @@ def main():
     ex_jit = jax.jit(extract_scan)
     tbl0 = init_table(ransac)
     key0 = jax.random.PRNGKey(9)
-    _fetch(ex_jit(tbl0, key0, rng_w, traj.truth[:WIN])[1])
+    jax.block_until_ready(ex_jit(tbl0, key0, rng_w, traj.truth[:WIN])[1])
     ts_e = []
     for _ in range(REPS):
         t0 = time.time()
-        _fetch(ex_jit(tbl0, key0, rng_w, traj.truth[:WIN])[1])
+        jax.block_until_ready(ex_jit(tbl0, key0, rng_w, traj.truth[:WIN])[1])
         ts_e.append(time.time() - t0)
     ex_ms = float(np.median(ts_e)) / WIN * 1e3
     print(f"[r5w] extractor-only cost at table_capacity="
@@ -172,7 +168,7 @@ def main():
         "extractor_ms_per_tick": round(ex_ms, 3),
         "full_run_seconds": round(t_run, 1),
         "n_active_trace": np.asarray(outs.n_active)[::max(1, T // 32)].astype(int).tolist(),
-        "platform": jax.devices()[0].platform,
+        "device": device_report(),
     }
     # -- submap + pose-graph pipeline (the scale answer: the monolithic
     # joint filter accumulates gauge drift over ~10k ticks, submap-local

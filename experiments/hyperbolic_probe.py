@@ -1,16 +1,16 @@
 """Wire-or-retire: blocked HYPERBOLIC downdate for the strict-triangular
-square-root update (VERDICT r4 item 6; CLAUDE.md round-4+ roadmap item 3).
+square-root update.
 
 The strict-triangular path (models/srekf_fast.sr_update_panel) keeps the
 factor lower-triangular per update by running the Andrews factor update
-and then re-factorizing via Gram + blocked Cholesky — an irreducible
-~D³·4/3 GEMM premium per batch (13.4k up/s at 10k vs srekf_fast's 37k).
+and then re-factorizing via Gram + blocked Cholesky — a ~D³·4/3 GEMM
+premium per batch over srekf_fast.
 The roadmap's named alternative: eliminate the downdate columns DIRECTLY
 against the triangular factor with hyperbolic (J-orthogonal) block
 Householder transforms — P' = L·Lᵀ − W·Wᵀ = L'·L'ᵀ with L' triangular by
 construction, no Gram, conditioning κ(L) not κ(P)².
 
-Blocked algorithm implemented here (compact composition, MXU trailing):
+Blocked algorithm implemented here (compact composition, GEMM trailing):
   for each NB-column panel of L:
     * NB sequential hyperbolic Householders: column j's reflector zeroes
       row j of W against L[j,j] (J = diag(1, -I_R) metric), applied to
@@ -23,12 +23,13 @@ Total: 2·D²·(NB+R)²/NB flops vs the Gram route's ~D³ + D³/3 per batch.
 FLOP ledger at the 10k point (D=20480, chunk rank R=1024, NB=1024):
 hyperbolic ≈ 8·D²·R per chunk x 8 chunks ≈ 2.7e13 vs Gram+chol ≈ 1.2e13
 per batch — the paper analysis already predicts ≥2x WORSE, plus ~D/NB·NB
-= D sequential reflector steps the MXU cannot batch.  This probe turns
+= D sequential reflector steps no matmul can batch.  This probe turns
 that into a measurement (correctness vs direct Cholesky at small D, then
-chip wall-clock at D=20480) so DESIGN.md §5's open claim closes with
-numbers either way.
+wall-clock on the card at D=20480 beside the Gram+chol recompression it
+would replace) so DESIGN.md §5's open claim closes with numbers either
+way.
 
-Run: python -m experiments.hyperbolic_probe [--small-only]
+Run on the card: python -m experiments.hyperbolic_probe [--small-only]
 """
 import argparse
 import os
@@ -50,7 +51,7 @@ def hyperbolic_downdate_blocked(L, W, nb: int):
     Q·J·Qᵀ = J preserves B·J·Bᵀ = L·Lᵀ − W·Wᵀ.  Each column's
     hyperbolic Householder H = J − β·v·vᵀ (β = 2/(vᵀJv), v = J·u − σ·e)
     zeroes that row's W entries; the composed panel transform applies to
-    the trailing rows as one GEMM (the MXU share).  Panels iterate in a
+    the trailing rows as one GEMM.  Panels iterate in a
     static Python loop so every trailing GEMM has a static shape."""
     D = L.shape[0]
     R = W.shape[1]
@@ -104,10 +105,6 @@ def hyperbolic_downdate_blocked(L, W, nb: int):
     return L
 
 
-def _fetch(x):
-    return float(np.asarray(x).reshape(-1)[0])
-
-
 def correctness(D=256, R=64, nb=64, seed=0):
     rng = np.random.default_rng(seed)
     A = rng.normal(size=(D, D)) / np.sqrt(D)
@@ -133,8 +130,8 @@ def correctness(D=256, R=64, nb=64, seed=0):
 
 def chip_timing(D=20480, R=1024, nb=1024, n_it=8):
     """Wall-clock of one rank-R blocked hyperbolic downdate at the 10k
-    chunk shape, against the measured Gram+chol recompression cost
-    (BASELINE.md round 4: 195 ms per batch at D=20480)."""
+    chunk shape, beside the Gram+chol recompression of the same factor
+    (models/srekf_fast.sr_recompress) timed in the same process."""
     key = jax.random.PRNGKey(0)
     # synthetic well-conditioned factor: diagonal-dominant lower-tri
     Lm = (jnp.tril(jax.random.normal(key, (D, D), jnp.float32)) * 0.02
@@ -153,16 +150,27 @@ def chip_timing(D=20480, R=1024, nb=1024, n_it=8):
         return out
 
     t0 = time.time()
-    _fetch(run(Lm, Wm, 1)[0, 0])
+    jax.block_until_ready(run(Lm, Wm, 1))
     print(f"[hyp] compile+1: {time.time()-t0:.1f}s", flush=True)
     t0 = time.time()
-    _fetch(run(Lm, Wm, n_it)[0, 0])
-    dt_all = time.time() - t0
-    per = (dt_all) / n_it
+    jax.block_until_ready(run(Lm, Wm, n_it))
+    per = (time.time() - t0) / n_it
+
+    from ekf_slam_tpu.models.srekf_fast import sr_recompress
+    from ekf_slam_tpu.state import FilterState
+    st = FilterState(x=jnp.zeros((D,), jnp.float32), P=Lm,
+                     sig=jnp.zeros(((D - 3) // 2,), jnp.float32),
+                     active=jnp.ones(((D - 3) // 2,), bool),
+                     n_active=jnp.asarray((D - 3) // 2, jnp.int32))
+    rec = jax.jit(sr_recompress)
+    jax.block_until_ready(rec(st))
+    t0 = time.time()
+    jax.block_until_ready(rec(st))
+    t_rec = time.time() - t0
     print(f"[hyp] D={D} R={R} nb={nb}: {per*1e3:.1f} ms per rank-{R} "
           f"downdate ({n_it} its).  Per M=4096 batch (8 chunks): "
-          f"{8*per*1e3:.0f} ms vs sr_update_panel's measured ~195 ms "
-          f"Gram+chol + ~110 ms Andrews chain (BASELINE.md)", flush=True)
+          f"{8*per*1e3:.0f} ms vs {t_rec*1e3:.0f} ms for one Gram+chol "
+          f"recompression", flush=True)
     return per
 
 
@@ -177,6 +185,9 @@ def main():
     print(f"[hyp] correctness: {'PASS' if ok else 'FAIL'}")
     if not ok or args.small_only:
         return
+    from ekf_slam_tpu.utils.runtime import device_report, enable_compile_cache
+    enable_compile_cache()
+    print(f"[hyp] device: {device_report()}", flush=True)
     chip_timing(R=args.rank, nb=args.nb)
 
 

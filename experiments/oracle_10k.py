@@ -3,7 +3,7 @@
 The bench's 10k ``vs_baseline`` previously rested on a pure asymptotic
 extrapolation from the 1k oracle (bench.py round-2).  One full oracle
 update at K=10k costs ~2.4e13 f64 FLOPs (K·2D² correspond + 2D³ update,
-D=20003) ≈ 10-30 minutes on this 2-core host — far too slow for the
+D=20003) ≈ 10-30 minutes on a 2-core host — far too slow for the
 driver's bench run, but affordable exactly once offline.  This script
 times ``n`` real updates (gate + dense Kalman update, the same op bench.py
 counts) and writes the artifact ``experiments/results/oracle_10k.json``;

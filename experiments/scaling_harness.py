@@ -7,11 +7,11 @@ COMPILED programs:
 
   * collective traffic per tick — every all-gather / all-reduce /
     all-to-all / collective-permute in the optimized HLO, with its shape
-    → bytes (the quantity that rides ICI within a slice and DCN across
-    hosts);
+    → bytes (the quantity that crosses the links between devices);
   * total FLOPs and per-device P-resident bytes (work balance);
   * wall-clock per tick on the virtual mesh (relative comparison only —
-    CPU collectives are memcpys; chip numbers come from bench.py).
+    CPU collectives are memcpys; card numbers come from chip_smoke.py
+    --four and bench.py).
 
 Output: a JSON document (stdout) consumed to write SCALING.md.
 

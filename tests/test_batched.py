@@ -383,8 +383,7 @@ def test_ml_unique_loser_semantics_append_vs_drop():
     """Two in-batch observations of the same landmark: with the default
     ml_losers='append' the loser is APPENDED as a duplicate landmark;
     with ml_losers='drop' it is invalidated for the batch — no duplicate,
-    and the posterior equals processing the winner alone (VERDICT r4
-    weak item 5 / advisor finding)."""
+    and the posterior equals processing the winner alone."""
     import dataclasses
 
     from ekf_slam_tpu.ops.observations import ObsBatch

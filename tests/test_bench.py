@@ -1,5 +1,5 @@
 """bench.py driver contract: ONE JSON line on stdout with the required
-keys, regardless of platform (the driver records it as BENCH_r{N}.json)."""
+keys and the device it ran on, regardless of platform."""
 import json
 import os
 import subprocess
@@ -27,7 +27,9 @@ def test_bench_emits_one_json_line_with_contract_keys():
     assert rec["value"] > 0 and rec["vs_baseline"] > 0
     assert rec["metric"] == "ekf_updates_per_sec_chip_1000_landmarks"
     assert isinstance(rec.get("extra", {}), dict)
-    # round-4 statistical discipline: the spread of the in-invocation
-    # repetitions ships with the headline (VERDICT r3 weak item 1)
+    # the spread of the in-invocation repetitions ships with the headline
     assert "spread_pct_1k" in rec["extra"], rec
     assert rec["extra"]["spread_pct_1k"] >= 0
+    # every result names the device it ran on
+    assert rec["extra"]["platform"] == "cpu"
+    assert rec["extra"]["device_kind"] and rec["extra"]["device_count"] >= 1

@@ -1,7 +1,7 @@
 """Filter-core kernels vs the NumPy oracle (SURVEY.md §4.2: unit tests per
 kernel against the dense rank-growing implementation, quirks included).
 
-The TPU path uses sparse-F predict and rank-2 updates; the oracle does the
+The jitted path uses sparse-F predict and rank-2 updates; the oracle does the
 dense MATLAB-shaped algebra (F·P·Fᵀ, (I−KH)·P).  They must agree to fp
 round-off at f64.
 """

@@ -1,7 +1,7 @@
 """Large-world campaign: generator, extractor-at-scale, end-to-end CI run.
 
-Scaled-down CI versions of the round-5 chip campaign
-(experiments/chip_r5_world.py; BASELINE.md round-5 tables): the
+Scaled-down CI versions of the building-scale campaign
+(experiments/chip_r5_world.py, chip_smoke.py's pipeline phase): the
 reference's only demonstrated scale is one 4x3 m room (test_SLAM.m), so
 the multi-room floorplan + full-pipeline run is capability the engine
 adds — these tests pin that it actually maps.

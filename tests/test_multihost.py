@@ -1,4 +1,4 @@
-"""Two-process multi-host CPU test (VERDICT r3 item 5).
+"""Two-process multi-host CPU test.
 
 Everything else in the suite runs collectives inside ONE process on a
 virtual mesh; this spawns 2 REAL processes (jax.distributed + gloo),
@@ -11,7 +11,7 @@ against the unsharded single-process reference inside each worker
 Skips when the environment can't initialize jax.distributed (worker
 exit code 3) or the coordination handshake never completes.
 
-Evidence pinning (VERDICT r4 weak item 6): because those skips are
+Evidence pinning: because those skips are
 silent-green in a summary line, a PASSING run writes a small artifact
 (experiments/results/multihost_ran.json) recording that the two
 processes really executed and verified all three sharded paths — the

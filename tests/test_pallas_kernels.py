@@ -1,92 +1,36 @@
-"""Pallas kernels vs their jnp references (interpret mode on CPU)."""
-import jax
+"""RANSAC hypothesis scoring (ops/ransac.score_lines) against a NumPy
+brute force."""
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from ekf_slam_tpu.ops.pallas import kernels
-
-
-def test_cov_update_matches_ref(rng):
-    D, R = 512, 128
-    P = jnp.asarray(rng.normal(0, 1, (D, D)), jnp.float32)
-    K = jnp.asarray(rng.normal(0, 1, (D, R)), jnp.float32)
-    V = jnp.asarray(rng.normal(0, 1, (R, D)), jnp.float32)
-    ref = kernels.cov_update_ref(P, K, V)
-    out = kernels.cov_update_pallas(P, K, V, tile_m=256, tile_n=256,
-                                    interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-5, atol=1e-4)
+from ekf_slam_tpu.ops.ransac import score_lines
 
 
-def test_cov_update_dispatch_cpu_falls_back(rng):
-    D, R = 256, 8
-    P = jnp.asarray(rng.normal(0, 1, (D, D)), jnp.float32)
-    K = jnp.asarray(rng.normal(0, 1, (D, R)), jnp.float32)
-    V = jnp.asarray(rng.normal(0, 1, (R, D)), jnp.float32)
-    out = kernels.cov_update(P, K, V)       # CPU → jnp path
-    np.testing.assert_allclose(np.asarray(out),
-                               np.asarray(kernels.cov_update_ref(P, K, V)),
-                               rtol=1e-6)
-
-
-def test_cov_update_odd_d_ragged_tiles(rng):
-    """D = 3+2K is odd — the cdiv grid must mask the ragged edge tiles."""
-    D, R = 203, 16
-    P = jnp.asarray(rng.normal(0, 1, (D, D)), jnp.float32)
-    K = jnp.asarray(rng.normal(0, 1, (D, R)), jnp.float32)
-    V = jnp.asarray(rng.normal(0, 1, (R, D)), jnp.float32)
-    ref = kernels.cov_update_ref(P, K, V)
-    out = kernels.cov_update_pallas(P, K, V, tile_m=64, tile_n=128,
-                                    interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-5, atol=1e-4)
-
-
-def test_update_batch_use_pallas_matches_xla(rng):
-    """EKFParams.use_pallas routes the gate AND the covariance correction
-    through the Pallas kernels (interpret on CPU) — full-path parity."""
-    import dataclasses
-    from ekf_slam_tpu.config import EKFParams
-    from ekf_slam_tpu.models import batched
-    from test_ekf_core import make_pair
-    from test_batched import measurement_of
-
-    base = EKFParams(capacity=8, max_obs=4, association="ml", s_cost=1e6,
-                     s_thresh=1e12, ref_compat=False, dtype=jnp.float64)
-    state, _ = make_pair(5, seed=13)
-    state = state._replace(P=0.5 * (state.P + state.P.T))
-    rr = np.random.default_rng(5)
-    zs, Rs = [], []
-    for slot in [0, 2, 4, 1]:
-        z = measurement_of(state, slot, noise=0.02, rng=rr)
-        zs.append(z)
-        Rs.append(np.diag([abs(z[0]) * 0.1, abs(z[1]) * 5.0]))
-    zs_j = jnp.asarray(np.stack(zs))
-    Rs_j = jnp.asarray(np.stack(Rs))
-    slots = jnp.asarray([0, 2, 4, 1])
-    valid = jnp.ones((4,), bool)
-
-    want = batched.update_batch(state, zs_j, slots, Rs_j, valid, base)
-    pal = dataclasses.replace(base, use_pallas=True)
-    got = batched.update_batch(state, zs_j, slots, Rs_j, valid, pal)
-    np.testing.assert_allclose(np.asarray(got.x), np.asarray(want.x),
-                               rtol=1e-10, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(got.P), np.asarray(want.P),
-                               rtol=1e-8, atol=1e-10)
+def _brute_force(pts, valid, lines, thresh):
+    """Every point against every line, one at a time, in the points'
+    precision."""
+    one = pts.dtype.type(1.0)
+    counts = []
+    for m, b in lines:
+        n = 0
+        for (x, y), ok in zip(pts, valid):
+            d = abs(m * x - y + b) / np.sqrt(m * m + one)
+            n += bool(ok and d < thresh)
+        counts.append(n)
+    return np.asarray(counts)
 
 
 def test_score_lines_matches_ref(rng):
     B, NH = 700, 37
-    pts = jnp.asarray(rng.uniform(-5, 5, (B, 2)), jnp.float32)
-    valid = jnp.asarray(rng.random(B) > 0.2)
-    lines = jnp.asarray(
-        np.stack([rng.uniform(-3, 3, NH), rng.uniform(-4, 4, NH)], -1),
-        jnp.float32)
-    ref = kernels.score_lines_ref(pts, valid, lines, 0.25)
-    out = kernels.score_lines_pallas(pts, valid, lines, 0.25,
-                                     interpret=True)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+    pts = rng.uniform(-5, 5, (B, 2)).astype(np.float32)
+    valid = rng.random(B) > 0.2
+    lines = np.stack([rng.uniform(-3, 3, NH), rng.uniform(-4, 4, NH)],
+                     -1).astype(np.float32)
+    out = score_lines(jnp.asarray(pts), jnp.asarray(valid),
+                      jnp.asarray(lines), 0.25)
+    assert out.dtype == jnp.int32 and out.shape == (NH,)
+    np.testing.assert_array_equal(
+        np.asarray(out), _brute_force(pts, valid, lines, np.float32(0.25)))
 
 
 def test_score_lines_counts_known_geometry():
@@ -95,97 +39,11 @@ def test_score_lines_counts_known_geometry():
     pts[:100, 0] = np.linspace(-5, 5, 100)
     pts[100:, 0] = np.linspace(-5, 5, 50)
     pts[100:, 1] = 2.0
-    lines = jnp.asarray([[0.0, 0.0], [0.0, 2.0]], jnp.float32)
-    valid = jnp.ones((150,), bool)
-    out = kernels.score_lines_ref(jnp.asarray(pts), valid, lines, 0.25)
-    np.testing.assert_array_equal(np.asarray(out), [100, 50])
-    out_p = kernels.score_lines_pallas(jnp.asarray(pts), valid, lines,
-                                       0.25, interpret=True)
-    np.testing.assert_array_equal(np.asarray(out_p), [100, 50])
-
-
-def test_pair_gather_matches_take():
-    """Scalar-prefetch DMA pair gather ≡ jnp.take on arbitrary pair-start
-    sets (duplicates, out-of-order, window-straddling starts included),
-    interpret mode on CPU.  Shapes satisfy the tile constraints
-    (rows % 8 == 0, width % 128 == 0) so the KERNEL runs, not the
-    fallback."""
-    import warnings
-
-    import numpy as np
-    from ekf_slam_tpu.ops.pallas.kernels import (pair_gather_pallas,
-                                                 pair_gather_ref)
-    rng = np.random.default_rng(3)
-    P = jnp.asarray(rng.normal(size=(64, 256)), jnp.float32)
-    # 15 and 23 straddle their 8-row windows (start % 8 == 7)
-    starts = jnp.asarray([5, 15, 0, 23, 17, 2, 62, 9], jnp.int32)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")       # a fallback warning = failure
-        out = pair_gather_pallas(P, starts, interpret=True)
-    np.testing.assert_array_equal(np.asarray(out),
-                                  np.asarray(pair_gather_ref(P, starts)))
-    # bf16 (16-row tile, 8 pairs/step) through the kernel as well
-    Pb = P.astype(jnp.bfloat16)
-    sb = jnp.asarray([5, 15, 31, 23, 17, 2, 62, 9], jnp.int32)  # 31%16==15
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        outb = pair_gather_pallas(Pb, sb, interpret=True)
-    np.testing.assert_array_equal(np.asarray(outb),
-                                  np.asarray(pair_gather_ref(Pb, sb)))
-    # non-divisible shapes WARN and fall back to the reference path
-    P_odd = jnp.asarray(rng.normal(size=(37, 131)), jnp.float32)
-    with pytest.warns(UserWarning, match="falling back"):
-        out2 = pair_gather_pallas(P_odd, starts[:4], interpret=True)
+    lines = np.asarray([[0.0, 0.0], [0.0, 2.0]], np.float32)
+    valid = np.ones((150,), bool)
+    valid[:10] = False
+    out = score_lines(jnp.asarray(pts), jnp.asarray(valid),
+                      jnp.asarray(lines), 0.25)
+    np.testing.assert_array_equal(np.asarray(out), [90, 50])
     np.testing.assert_array_equal(
-        np.asarray(out2), np.asarray(pair_gather_ref(P_odd, starts[:4])))
-
-
-def test_rows_gather_pallas_update_parity():
-    """pht_mode='rows' + rows_gather='pallas' produces the same update as
-    the take path (full batched update, f64) — the state is padded to
-    the 128 tile so the Pallas kernel (not the fallback) runs."""
-    import dataclasses
-    import numpy as np
-    from ekf_slam_tpu.config import EKFParams
-    from ekf_slam_tpu.models import batched
-    from test_batched import measurement_of
-    from test_ekf_core import make_pair
-
-    base = EKFParams(capacity=8, max_obs=4, ref_compat=False,
-                     dtype=jnp.float64, pht_mode="rows")
-    state, _ = make_pair(4, seed=6)
-    # embed into a 128-dim padded state (init_state pad_to_multiple_of
-    # layout): rows/width hit the kernel's tile constraints
-    D0 = state.dim
-    state = state._replace(
-        x=jnp.zeros((128,), state.x.dtype).at[:D0].set(state.x),
-        P=jnp.zeros((128, 128), state.P.dtype).at[:D0, :D0].set(state.P))
-    zs = []
-    for i, slot in enumerate([0, 2, 3]):
-        z = measurement_of(state, slot)
-        z[0] += 0.04 * (i + 1)
-        zs.append(z)
-    zs = jnp.asarray(np.stack(zs))
-    slots = jnp.asarray([0, 2, 3], jnp.int32)
-    Rs = jnp.asarray(np.stack([np.diag([z[0] * 0.1, abs(z[1]) * 5.0])
-                               for z in np.asarray(zs)]))
-    valid = jnp.ones((3,), bool)
-    a = batched.update_batch(state, zs, slots, Rs, valid, base)
-    b = batched.update_batch(
-        state, zs, slots, Rs, valid,
-        dataclasses.replace(base, rows_gather="pallas"))
-    np.testing.assert_allclose(np.asarray(a.P), np.asarray(b.P),
-                               rtol=1e-12, atol=1e-14)
-    np.testing.assert_allclose(np.asarray(a.x), np.asarray(b.x),
-                               rtol=1e-12, atol=1e-14)
-
-
-def test_rows_gather_validation():
-    import pytest
-    from ekf_slam_tpu.config import EKFParams
-    with pytest.raises(ValueError, match="rows_gather"):
-        EKFParams(rows_gather="magic")
-    with pytest.raises(ValueError, match="rows_gather"):
-        EKFParams(rows_gather="pallas")        # dense pht, not srekf_fast
-    EKFParams(rows_gather="pallas", pht_mode="rows")
-    EKFParams(rows_gather="pallas", update_mode="srekf_fast")
+        np.asarray(out), _brute_force(pts, valid, lines, 0.25))

@@ -107,9 +107,9 @@ def test_recovery_composes_with_fault_injection(tmp_path):
 
 
 def test_donated_session_crash_resume_bit_continuous(tmp_path):
-    """Checkpoint/resume in the SINGLE-BUFFER regime (VERDICT r4 item 4):
-    the session donates its carry to the step program (the 20k/32k
-    capacity-ceiling mode, where P has one buffer and the input carry is
+    """Checkpoint/resume in the SINGLE-BUFFER regime: the session donates
+    its carry to the step program (the capacity-ceiling mode, where P has
+    one buffer and the input carry is
     CONSUMED) — recovery.drive_ticks snapshots the carry to host BEFORE
     each donating step, so a crash still resumes bit-continuously."""
     traj, _ = make_traj(T=60)

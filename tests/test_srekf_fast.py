@@ -4,7 +4,7 @@ f64 exact-arithmetic parity of the closed-form Andrews update against
 models/batched.update_batch, the zero-column invariants that make the O(D)
 noise absorption and appends valid for a GENERAL factor, and the f32
 PSD-by-construction property at the conditioning stress the QR path was too
-slow to protect (VERDICT round-2 item 1)."""
+slow to protect."""
 import dataclasses
 
 import jax
@@ -338,7 +338,7 @@ def test_f32_panel_update_stays_psd_and_triangular():
 
 
 def test_config_rejects_ignored_dense_knobs():
-    for kw in (dict(cov_dtype=jnp.bfloat16), dict(use_pallas=True),
+    for kw in (dict(cov_dtype=jnp.bfloat16),
                dict(joseph=True), dict(symmetrize=True),
                dict(masked_writes=True), dict(pht_mode="rows")):
         with pytest.raises(ValueError):

@@ -1,10 +1,8 @@
-"""SYRK covariance downdate: the Pallas half-flops correction kernel
-(ops/pallas/kernels.syrk_downdate) vs its jnp reference, and the
-``EKFParams.correction='syrk'`` batched-update path vs the GEMM default.
+"""SYRK covariance downdate: the ``EKFParams.correction='syrk'``
+batched-update path vs the GEMM default.
 
 The correction P ← P − Kg·HP equals the symmetric downdate W·Wᵀ with
-W = PHᵀ·L⁻ᵀ (S = L·Lᵀ); the kernel computes only lower-triangle tiles
-and mirrors them from the accumulator, so the output is bit-symmetric.
+W = PHᵀ·L⁻ᵀ (S = L·Lᵀ), models/batched.syrk_downdate.
 """
 import dataclasses
 import warnings
@@ -15,137 +13,6 @@ import pytest
 
 from ekf_slam_tpu.config import EKFParams
 from ekf_slam_tpu.models import batched
-from ekf_slam_tpu.ops.pallas import kernels
-
-
-def _sym(rng, D, dtype=jnp.float64):
-    A = rng.normal(0, 1, (D, D))
-    return jnp.asarray(0.5 * (A + A.T) + D * np.eye(D), dtype)
-
-
-def test_syrk_kernel_matches_ref(rng):
-    D, R = 512, 96                       # R not a lane multiple → padded
-    P = _sym(rng, D)
-    W = jnp.asarray(rng.normal(0, 1, (D, R)), jnp.float64)
-    ref = kernels.syrk_downdate_ref(P, W)
-    out = kernels.syrk_downdate_pallas(P, W, tile=128, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-12, atol=1e-12)
-
-
-def test_syrk_kernel_tile_selection_and_shapes(rng):
-    # D=640 → tile 128 (not 512/256); D=1024 → tile 512
-    assert kernels.syrk_tile(640) == 128
-    assert kernels.syrk_tile(1024) == 512
-    assert kernels.syrk_tile(768) == 256
-    assert kernels.syrk_tile(250) == 0
-    for D, tile in ((384, 128), (256, 256)):
-        P = _sym(rng, D)
-        W = jnp.asarray(rng.normal(0, 1, (D, 128)), jnp.float64)
-        out = kernels.syrk_downdate_pallas(P, W, tile=tile, interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(out), np.asarray(kernels.syrk_downdate_ref(P, W)),
-            rtol=1e-12, atol=1e-12)
-
-
-def test_syrk_kernel_bf16_storage(rng):
-    """bf16 P storage: kernel accumulates in f32 and quantizes once on
-    the way out — match the reference's identical policy exactly."""
-    D, R = 256, 128
-    P = _sym(rng, D, jnp.float32).astype(jnp.bfloat16)
-    W = jnp.asarray(rng.normal(0, 0.1, (D, R)), jnp.float32).astype(
-        jnp.bfloat16)
-    ref = kernels.syrk_downdate_ref(P, W)
-    out = kernels.syrk_downdate_pallas(P, W, tile=128, interpret=True)
-    np.testing.assert_array_equal(
-        np.asarray(out, np.float32), np.asarray(ref, np.float32))
-
-
-@pytest.mark.parametrize("mirror", ["sym", "mxu", "vpu"])
-def test_syrk_output_bit_symmetric(rng, mirror):
-    """The mirror block is written from the SAME accumulator — via an
-    exact identity contraction on the MXU ('mxu', the chip default) or a
-    VPU shuffle transpose ('vpu') — so a bit-symmetric P stays
-    bit-symmetric and both modes agree exactly."""
-    D = 384
-    P = _sym(rng, D)
-    W = jnp.asarray(rng.normal(0, 1, (D, 64)), jnp.float64)
-    out = np.asarray(kernels.syrk_downdate_pallas(P, W, tile=128,
-                                                  interpret=True,
-                                                  mirror=mirror))
-    np.testing.assert_array_equal(out, out.T)
-    ref = np.asarray(kernels.syrk_downdate_ref(P, W))
-    np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-12)
-
-
-def test_syrk_mirror_modes_bit_identical(rng):
-    """The eye-dot transposes are EXACT: on a bit-symmetric P all three
-    mirror modes produce the same bits (f32 and bf16 storage)."""
-    D = 256
-    for dt_ in (jnp.float32, jnp.bfloat16):
-        P = _sym(rng, D, jnp.float32).astype(dt_)
-        W = jnp.asarray(rng.normal(0, 0.1, (D, 128)), jnp.float32).astype(
-            dt_)
-        a = kernels.syrk_downdate_pallas(P, W, tile=128, interpret=True,
-                                         mirror="mxu")
-        b = kernels.syrk_downdate_pallas(P, W, tile=128, interpret=True,
-                                         mirror="vpu")
-        c = kernels.syrk_downdate_pallas(P, W, tile=128, interpret=True,
-                                         mirror="sym")
-        np.testing.assert_array_equal(np.asarray(a, np.float32),
-                                      np.asarray(b, np.float32))
-        np.testing.assert_array_equal(np.asarray(a, np.float32),
-                                      np.asarray(c, np.float32))
-
-
-def test_syrk_w_resident_matches_blocked(rng):
-    """The W-resident variant (whole W pinned in VMEM, tiles sliced in
-    the kernel) is bit-identical to the blocked-W default."""
-    D, R = 384, 96
-    P = _sym(rng, D)
-    W = jnp.asarray(rng.normal(0, 1, (D, R)), jnp.float64)
-    a = kernels.syrk_downdate_pallas(P, W, tile=128, interpret=True)
-    b = kernels.syrk_downdate_pallas(P, W, tile=128, interpret=True,
-                                     w_resident=True)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    for dt_ in (jnp.float32, jnp.bfloat16):
-        Pq = P.astype(dt_)
-        Wq = W.astype(dt_)
-        a = kernels.syrk_downdate_pallas(Pq, Wq, tile=128, interpret=True)
-        b = kernels.syrk_downdate_pallas(Pq, Wq, tile=128, interpret=True,
-                                         w_resident=True)
-        np.testing.assert_array_equal(np.asarray(a, np.float32),
-                                      np.asarray(b, np.float32))
-
-
-def test_syrk_sym_mirror_symmetrizes_asymmetric_p(rng):
-    """mirror='sym' on an ASYMMETRIC P: the lower triangle matches the
-    reference and every OFF-DIAGONAL upper block is the lower's
-    transpose (diagonal tiles keep their own asymmetry — irrelevant for
-    the filter, whose P is symmetric by construction)."""
-    D, tile = 256, 128
-    A = jnp.asarray(rng.normal(0, 1, (D, D)), jnp.float64)  # asymmetric
-    W = jnp.asarray(rng.normal(0, 1, (D, 64)), jnp.float64)
-    out = np.asarray(kernels.syrk_downdate_pallas(A, W, tile=tile,
-                                                  interpret=True,
-                                                  mirror="sym"))
-    ref = np.asarray(kernels.syrk_downdate_ref(A, W))
-    lo = np.tril_indices(D)
-    np.testing.assert_allclose(out[lo], ref[lo], rtol=1e-12, atol=1e-12)
-    # off-diagonal block mirror: upper tile (j,i) == lower tile (i,j)ᵀ
-    np.testing.assert_array_equal(out[:tile, tile:],
-                                  out[tile:, :tile].T)
-
-
-def test_syrk_dispatch_fallback_warns(rng):
-    D = 250                              # not a multiple of 128
-    P = _sym(rng, D)
-    W = jnp.asarray(rng.normal(0, 1, (D, 32)), jnp.float64)
-    with pytest.warns(UserWarning, match="falling back"):
-        out = kernels.syrk_downdate(P, W, use_pallas=True)
-    np.testing.assert_allclose(np.asarray(out),
-                               np.asarray(kernels.syrk_downdate_ref(P, W)),
-                               rtol=1e-12)
 
 
 def _padded_state_and_obs(n_slots=4, seed=6, pad=128):
@@ -191,23 +58,27 @@ def test_update_batch_syrk_matches_gemm(pht):
 
 
 def test_update_batch_syrk_unpadded_falls_back():
-    """An unpadded (odd-D) state warns and still computes correctly."""
+    """An unpadded (odd-D) state needs no padding: the symmetric form runs
+    at any D, emits no warning, and equals the GEMM correction."""
     base = EKFParams(capacity=8, max_obs=4, ref_compat=False,
                      dtype=jnp.float64, correction="syrk")
     from test_batched import measurement_of
     from test_ekf_core import make_pair
     state, _ = make_pair(4, seed=6)
     state = state._replace(P=0.5 * (state.P + state.P.T))
+    assert state.dim % 2 == 1
     z = measurement_of(state, 1)
     zs = jnp.asarray(z)[None, :]
     Rs = jnp.asarray(np.diag([z[0] * 0.1, abs(z[1]) * 5.0]))[None]
     slots = jnp.asarray([1], jnp.int32)
     valid = jnp.ones((1,), bool)
-    with pytest.warns(UserWarning, match="falling back"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         got = batched.update_batch(state, zs, slots, Rs, valid, base)
     want = batched.update_batch(
         state, zs, slots, Rs, valid,
         dataclasses.replace(base, correction="gemm"))
+    assert got.P.shape == state.P.shape
     np.testing.assert_allclose(np.asarray(got.P), np.asarray(want.P),
                                rtol=1e-9, atol=1e-11)
 
@@ -231,9 +102,10 @@ def test_update_chunked_syrk_matches_gemm():
 
 
 def test_sharded_session_reverts_syrk():
-    """ShardedSlamSession cannot run the single-chip SYRK kernel over a
-    row-sharded P — it reverts to the (semantically identical) GEMM
-    correction so utils/schedule.tuned_params output composes directly."""
+    """ShardedSlamSession under GSPMD cannot run the single-device
+    symmetric downdate over a row-sharded P — it reverts to the
+    (semantically identical) GEMM correction so utils/schedule.tuned_params
+    output composes directly."""
     from ekf_slam_tpu.config import RansacParams
     from ekf_slam_tpu.parallel.mesh import make_mesh
     from ekf_slam_tpu.parallel.sharded import ShardedSlamSession
@@ -257,38 +129,3 @@ def test_correction_validation():
     with pytest.raises(ValueError, match="syrk"):
         EKFParams(correction="syrk", update_mode="srekf_fast")
     EKFParams(correction="syrk")                 # valid alone
-
-
-def test_syrk_gram_matches_ref(rng):
-    """Half-flop Gram kernel (lower tiles + MXU mirror): S·Sᵀ exactly,
-    bit-symmetric, rank padded internally."""
-    D, R = 384, 200                      # R not a lane multiple → padded
-    S = jnp.asarray(rng.normal(0, 1, (D, R)), jnp.float64)
-    ref = kernels.syrk_gram_ref(S)
-    out = kernels.syrk_gram_pallas(S, tile=128, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-12, atol=1e-12)
-    G = np.asarray(out)
-    assert np.array_equal(G, G.T)
-
-
-def test_syrk_gram_dispatch_guard(rng):
-    """Non-tile-divisible dims fall back to the matmul reference."""
-    S = jnp.asarray(rng.normal(0, 1, (130, 16)), jnp.float64)
-    out = kernels.syrk_gram(S, use_pallas=True)
-    np.testing.assert_allclose(np.asarray(out),
-                               np.asarray(kernels.syrk_gram_ref(S)),
-                               rtol=1e-12, atol=1e-12)
-
-
-def test_syrk_gram_k_tiled_accumulation(rng):
-    """ktile < R forces multi-step accumulation per pair (the VMEM-safe
-    schedule the chip needs at R = D): still exact."""
-    D, R = 256, 700
-    S = jnp.asarray(rng.normal(0, 1, (D, R)), jnp.float64)
-    ref = kernels.syrk_gram_ref(S)
-    out = kernels.syrk_gram_pallas(S, tile=128, ktile=256, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-12, atol=1e-12)
-    G = np.asarray(out)
-    assert np.array_equal(G, G.T)
