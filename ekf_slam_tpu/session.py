@@ -134,8 +134,8 @@ class SlamSession:
     #: donate the carry to the per-tick step program so the covariance is
     #: updated IN PLACE — without it, XLA holds input and output P
     #: simultaneously, and near the capacity ceiling a second P buffer does
-    #: not fit in device memory.  None = auto: on once P alone takes a
-    #: quarter of the device's memory (utils/runtime.device_memory_bytes).
+    #: not fit in device memory.  None = auto: on when P ≥ 2 GB (a fixed
+    #: size, not yet measured against a card's capacity).
     #: With donation, a carry passed to ``step`` is CONSUMED — keep only
     #: the returned carry.  ``run()``'s fused lax.scan still
     #: double-buffers its carry internally; at the capacity ceiling,
@@ -161,11 +161,10 @@ class SlamSession:
             self.ransac_params = RansacParams(dtype=self.ekf_params.dtype)
         self._init_table, self._extract = EXTRACTORS[self.extractor]
         if self.donate_carry is None:
-            # auto: in-place stepping once P alone is a quarter of memory
-            from .utils.runtime import device_memory_bytes
+            # auto: in-place stepping once P alone is a 2 GB-class buffer
             d = self.ekf_params.dim
             p_bytes = d * d * jnp.dtype(self.ekf_params.cov_dt).itemsize
-            self.donate_carry = 4 * p_bytes >= device_memory_bytes()
+            self.donate_carry = p_bytes >= 2 * 1024 ** 3
         step = self._make_step()
         self._step = (jax.jit(step, donate_argnums=(0,))
                       if self.donate_carry else jax.jit(step))

@@ -52,13 +52,3 @@ def require_gpu(report: dict = None) -> dict:
             f"device(s) ({report['kind']})")
     return report
 
-
-def device_memory_bytes() -> int:
-    """Memory of this process's first device: the allocator's limit on an
-    accelerator, physical host memory on the CPU backend (which reports
-    no allocator statistics).  A local device: in a multi-process run
-    ``jax.devices()[0]`` may belong to another process."""
-    stats = jax.local_devices()[0].memory_stats() or {}
-    if "bytes_limit" in stats:
-        return int(stats["bytes_limit"])
-    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")

@@ -2,9 +2,11 @@
 
 Near the capacity ceiling a SECOND covariance buffer does not fit in
 device memory, so the product path is ``SlamSession``'s donated step:
-the carry is donated to the tick program and the correction updates P
-through its input/output alias.  These tests pin
-the two load-bearing properties at CI scale:
+the carry is donated to the tick program, whose output P takes over the
+input's buffer.  (The XLA correction still holds f32 D² temporaries,
+one per update chunk in the batched chain, so donation alone does not
+make a map fit; PERF.md gives the measured step memory by capacity.)
+These tests pin the two load-bearing properties at CI scale:
 
   1. donation changes nothing semantically (parity vs the undonated
      session, tick by tick);
@@ -66,18 +68,14 @@ def test_donated_step_aliases_covariance_buffer():
 
 
 def test_auto_donation_threshold():
-    """donate_carry=None resolves by P size: off at CI scale, on once P
-    alone takes a quarter of the device's memory (verified via the
-    resolved flag on a LAZY session whose state is never materialized)."""
-    from ekf_slam_tpu.utils.runtime import device_memory_bytes
+    """donate_carry=None resolves by P size: off at CI scale, on once
+    P alone is a 2 GB-class buffer (verified via the resolved flag on a
+    LAZY session whose state is never materialized)."""
     small = _sessions()
     assert small.donate_carry is False
-    # the smallest capacity whose f32 P reaches mem/4.  Constructing the
-    # session only builds jit wrappers, never the state itself.
-    mem = device_memory_bytes()
-    cap = int(np.ceil((np.sqrt(mem / 16) - 3) / 2))
-    for c, want in ((cap, True), (cap // 2, False)):
-        ep = EKFParams(capacity=c, max_obs=8, ref_compat=False,
-                       dtype=jnp.float32)
-        sess = SlamSession(ekf_params=ep, ransac_params=SIM_RANSAC, seed=0)
-        assert sess.donate_carry is want, (c, mem)
+    # capacity 40000 → D ≈ 80k, f32 P ≈ 25 GB: auto-on.  Constructing
+    # the session only builds jit wrappers, never the state itself.
+    ep = EKFParams(capacity=40000, max_obs=8, ref_compat=False,
+                   dtype=jnp.float32)
+    big = SlamSession(ekf_params=ep, ransac_params=SIM_RANSAC, seed=0)
+    assert big.donate_carry is True
